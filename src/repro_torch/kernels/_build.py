@@ -1,0 +1,113 @@
+"""Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+
+Every ``csrc/*.cu`` compiles for ``sm_90a`` to an object file -- one
+``nvcc`` per source, all started together -- and the objects link into
+``build/repro_torch/libkernels.so`` at the root of the checkout.  A hash
+of the sources and flags is stored beside the library: an unchanged
+source tree loads the library already built, a changed one rebuilds.
+
+The sources expose a plain C interface (pointers, ints, the stream), so
+no PyTorch header is compiled and a build takes seconds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+LIB_NAME = "libkernels.so"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC")
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    return str(Path(home) / "bin" / "nvcc")
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    return h.hexdigest()
+
+
+def build(build_dir: Path = BUILD_DIR) -> Path:
+    """Compile every source in parallel and link the shared library.
+    Raises ``RuntimeError`` with the compiler's output when any step
+    fails.  Returns the library's path."""
+    build_dir.mkdir(parents=True, exist_ok=True)
+    lib = build_dir / LIB_NAME
+    stamp = build_dir / (LIB_NAME + ".sha256")
+    digest = source_hash()
+    if lib.exists() and stamp.exists() and stamp.read_text() == digest:
+        return lib
+    nvcc = nvcc_path()
+    objs, procs = [], []
+    for src in sources():
+        obj = build_dir / (src.stem + ".o")
+        objs.append(obj)
+        procs.append((src, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for src, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{src.name}:\n{out}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    tmp = build_dir / (LIB_NAME + ".tmp")
+    link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                           *map(str, objs)], capture_output=True, text=True)
+    if link.returncode != 0:
+        raise RuntimeError("nvcc link failed:\n" + link.stdout + link.stderr)
+    os.replace(tmp, lib)
+    stamp.write_text(digest)
+    return lib
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first use in this process."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            _lib = ctypes.CDLL(str(build()))
+        return _lib
+
+
+def function(name: str, n_ptrs: int, n_ints: int):
+    """C entry point ``name(ptr * n_ptrs, int * n_ints, stream) -> int``.
+
+    Every pointer and the stream are ``c_void_p`` (a default ctypes int
+    would cut a 64-bit pointer); the int result is ``cudaGetLastError()``
+    after the launch."""
+    fn = getattr(load(), name)
+    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {err}")

@@ -1,0 +1,296 @@
+"""Port vs JAX: model building blocks and the transformer's serving entry
+points on one tiny config (2 layers, d_model 48, 4 query / 2 KV heads,
+d_head 16).  Both sides get the same numpy inputs and the same weights
+(JAX ``tr.init_params`` carried across with ``repro_torch.bridge``).
+
+Tolerances: float32 compute agrees to ``rtol = atol = 1e-5`` (the two
+frameworks sum matmuls in different orders).  bfloat16 compute rounds at
+the same places in both, but a product can land on the other side of a
+rounding boundary; one bf16 step is 2^-8 relative, and two layers of
+residual stream carry a few of them, so bf16 outputs are held to
+``BF16_TOL`` absolute on values of order one.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.models import common as jcm
+from repro.models import transformer as jtr
+from repro_torch import bridge
+from repro_torch.models import common as cm
+from repro_torch.models import transformer as tr
+
+# parallel test workers share the CPU: one torch thread each keeps this
+# file from slowing the wall-clock-gated tests that run beside it
+torch.set_num_threads(1)
+
+F32_TOL = 1e-5
+BF16_TOL = 6e-2
+DTYPES = {"f32": (jnp.float32, torch.float32, F32_TOL),
+          "bf16": (jnp.bfloat16, torch.bfloat16, BF16_TOL)}
+
+
+def _tiny(**kw):
+    fields = dict(name="tiny", n_layers=2, d_model=48, n_heads=4,
+                  n_kv_heads=2, d_head=16, d_ff=64, vocab_size=96)
+    fields.update(kw)
+    return jtr.TransformerConfig(**fields)
+
+
+@pytest.fixture(scope="module")
+def model():
+    jcfg = _tiny()
+    jparams = jtr.init_params(jax.random.PRNGKey(0), jcfg)
+    tcfg = bridge.config_from_jax(dataclasses.asdict(jcfg))
+    tparams = bridge.params_from_jax(
+        jax.tree_util.tree_map(np.asarray, jparams), device="cpu")
+    return jcfg, jparams, tcfg, tparams
+
+
+def _close(got: torch.Tensor, want, tol: float) -> None:
+    np.testing.assert_allclose(bridge.tensor_to_numpy(got),
+                               np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# Building blocks
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_rms_norm(dt):
+    jdt, tdt, tol = DTYPES[dt]
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((3, 5, 48)).astype(np.float32)
+    w = rng.standard_normal(48).astype(np.float32)
+    want = jcm.rms_norm(jnp.asarray(x, jdt), jnp.asarray(w))
+    got = cm.rms_norm(torch.tensor(x).to(tdt), torch.tensor(w))
+    assert got.dtype == tdt
+    _close(got, want, tol)
+
+
+@pytest.mark.parametrize("frac", [1.0, 0.5], ids=["full", "partial"])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_apply_rope(frac, dt):
+    """Interleaved pairs, full and partial rotary, with per-row positions."""
+    jdt, tdt, tol = DTYPES[dt]
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((2, 7, 3, 16)).astype(np.float32)
+    pos = rng.integers(0, 500, (2, 7)).astype(np.int32)
+    want = jcm.apply_rope(jnp.asarray(x, jdt), jnp.asarray(pos), 10000.0,
+                          frac)
+    got = cm.apply_rope(torch.tensor(x).to(tdt), torch.tensor(pos), 10000.0,
+                        frac)
+    assert got.dtype == tdt
+    _close(got, want, tol)
+
+
+def test_rope_is_interleaved_not_half_split():
+    """Rotating position 1 by hand: pairs are (x0, x1), (x2, x3), ..."""
+    x = torch.zeros(1, 1, 1, 4)
+    x[..., 0] = 1.0
+    out = cm.apply_rope(x, torch.tensor([[1]]), 10000.0)
+    assert torch.allclose(out[0, 0, 0, :2],
+                          torch.tensor([np.cos(1.0), np.sin(1.0)],
+                                       dtype=torch.float32))
+    assert float(out[..., 2:].abs().max()) == 0.0
+
+
+def test_attention_helpers_match_jax():
+    """naive / chunked causal attention and decode_attention_ref."""
+    rng = np.random.default_rng(2)
+    q, k, v = (rng.standard_normal((2, 10, 4, 16)).astype(np.float32)
+               for _ in range(3))
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    tq, tk, tv = map(torch.tensor, (q, k, v))
+    _close(cm.naive_causal_attention(tq, tk, tv),
+           jcm.naive_causal_attention(jq, jk, jv), F32_TOL)
+    _close(cm.naive_causal_attention(tq, tk, tv, window=3),
+           jcm.naive_causal_attention(jq, jk, jv, window=3), F32_TOL)
+    _close(cm.chunked_causal_attention(tq, tk, tv, block_kv=4),
+           jcm.chunked_causal_attention(jq, jk, jv, block_kv=4), F32_TOL)
+    lens = np.asarray([3, 10], np.int32)
+    _close(cm.decode_attention_ref(tq[:, :1], tk, tv, torch.tensor(lens)),
+           jcm.decode_attention_ref(jq[:, :1], jk, jv, jnp.asarray(lens)),
+           F32_TOL)
+    kr = cm.repeat_kv(tk[:, :, :2], 2)
+    _close(kr, jcm.repeat_kv(jk[:, :, :2], 2), 0.0)
+
+
+def test_int8_quantization_matches_jax():
+    rng = np.random.default_rng(3)
+    w = rng.standard_normal((16, 8)).astype(np.float32)
+    jq = jcm.quantize_int8(jnp.asarray(w))
+    tq = cm.quantize_int8(torch.tensor(w))
+    np.testing.assert_array_equal(tq["q"].numpy(), np.asarray(jq["q"]))
+    _close(tq["scale"], jq["scale"], F32_TOL)
+    _close(cm.maybe_dequant(tq, torch.float32),
+           jcm.maybe_dequant(jq, jnp.float32), F32_TOL)
+    _close(cm.dequantize_int8(tq), jcm.dequantize_int8(jq), BF16_TOL)
+
+
+# ---------------------------------------------------------------------------
+# Entry points
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_forward_collect_cache(model, dt):
+    jdt, tdt, tol = DTYPES[dt]
+    jcfg, jparams, tcfg, tparams = model
+    tokens = np.random.default_rng(4).integers(0, 96, (2, 12)).astype(
+        np.int32)
+    jl, _, jc = jtr.forward(jparams, jnp.asarray(tokens), jcfg, jdt,
+                            collect_cache=True)
+    tl, aux, tc = tr.forward(tparams, torch.tensor(tokens), tcfg, tdt,
+                             collect_cache=True)
+    assert tl.dtype == tdt and tl.shape == jl.shape and float(aux) == 0.0
+    _close(tl, jl, tol)
+    for k in ("k", "v"):
+        assert tc[k].shape == jc[k].shape
+        _close(tc[k], jc[k], tol)
+    hid = tr.forward(tparams, torch.tensor(tokens), tcfg, tdt,
+                     return_hidden=True)
+    _close(hid, jtr.forward(jparams, jnp.asarray(tokens), jcfg, jdt,
+                            return_hidden=True), tol)
+
+
+def test_forward_long_sequence_uses_chunked_attention():
+    """Above ``chunked_attn_threshold`` both sides take the online-softmax
+    path; f32 logits still agree."""
+    jcfg = _tiny(chunked_attn_threshold=8, attn_block_kv=4)
+    jparams = jtr.init_params(jax.random.PRNGKey(5), jcfg)
+    tcfg = bridge.config_from_jax(dataclasses.asdict(jcfg))
+    tparams = bridge.params_from_jax(
+        jax.tree_util.tree_map(np.asarray, jparams), device="cpu")
+    tokens = np.random.default_rng(5).integers(0, 96, (1, 13)).astype(
+        np.int32)
+    jl, _ = jtr.forward(jparams, jnp.asarray(tokens), jcfg, jnp.float32)
+    tl, _ = tr.forward(tparams, torch.tensor(tokens), tcfg, torch.float32)
+    _close(tl, jl, F32_TOL)
+
+
+def test_encode(model):
+    jcfg, jparams, tcfg, tparams = model
+    ecfg = dataclasses.replace(jcfg, causal=False)
+    tokens = np.random.default_rng(6).integers(0, 96, (3, 9)).astype(
+        np.int32)
+    want = jtr.encode(jparams, jnp.asarray(tokens), ecfg)
+    got = tr.encode(tparams, torch.tensor(tokens),
+                    dataclasses.replace(tcfg, causal=False))
+    _close(got, want, F32_TOL)
+    assert np.allclose(torch.linalg.norm(got, dim=-1).numpy(), 1.0,
+                       atol=1e-4)
+
+
+def _paged_problem(cfg, seed=7):
+    """A random page pool (L, P, page, H_kv, D), permuted block tables and
+    per-row positions; row 2's position lies past its block table."""
+    rng = np.random.default_rng(seed)
+    page, m, b = 4, 3, 3
+    n_pages = b * m + 1
+    pool = {k: rng.standard_normal((cfg.n_layers, n_pages, page,
+                                    cfg.n_kv_heads, cfg.d_head)).astype(
+                                        np.float32) for k in ("k", "v")}
+    tables = rng.permutation(b * m).reshape(b, m).astype(np.int32)
+    token = np.asarray([3, 5, 7], np.int32)
+    pos = np.asarray([6, 0, m * page + 2], np.int32)
+    return pool, tables, token, pos
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_paged_decode_step(model, dt):
+    """write_mask False rows and a position past the table are not written
+    (JAX drops them out of bounds); logits and the post-step pool agree."""
+    jdt, tdt, tol = DTYPES[dt]
+    jcfg, jparams, tcfg, tparams = model
+    pool, tables, token, pos = _paged_problem(jcfg)
+    mask = np.asarray([True, False, True])
+    jl, jc = jtr.paged_decode_step(
+        jparams, {k: jnp.asarray(v, jdt) for k, v in pool.items()},
+        jnp.asarray(token), jnp.asarray(pos), jnp.asarray(tables), jcfg,
+        jdt, write_mask=jnp.asarray(mask))
+    tcache = {k: torch.tensor(v).to(tdt) for k, v in pool.items()}
+    before = {k: v.clone() for k, v in tcache.items()}
+    tl, tc = tr.paged_decode_step(
+        tparams, tcache, torch.tensor(token), torch.tensor(pos),
+        torch.tensor(tables), tcfg, tdt, write_mask=torch.tensor(mask))
+    assert tc is tcache                       # the port updates in place
+    _close(tl, jl, tol)
+    for k in ("k", "v"):
+        _close(tc[k], jc[k], tol)
+        # the masked row's pages and the unwritten row keep their bytes
+        assert torch.equal(tc[k][:, tables[1]], before[k][:, tables[1]])
+        assert torch.equal(tc[k][:, tables[2]], before[k][:, tables[2]])
+    # exactly one row per layer changed: row 0's write at position 6
+    changed = (tc["k"] != before["k"]).any(dim=(3, 4))
+    assert int(changed.sum()) == jcfg.n_layers
+
+
+def test_paged_decode_step_kernel_plain_version_agrees(model):
+    """``attn_impl`` with the kernel's wrapper (its plain version on the
+    CPU) gives the default path's tokens in f32."""
+    from repro_torch.kernels.paged_attention.ops import paged_decode_attention
+    _, _, tcfg, tparams = model
+    pool, tables, token, pos = _paged_problem(tcfg, seed=8)
+    pos = np.minimum(pos, 11)
+    outs = []
+    for attn in (None, paged_decode_attention):
+        cache = {k: torch.tensor(v) for k, v in pool.items()}
+        lg, _ = tr.paged_decode_step(
+            tparams, cache, torch.tensor(token), torch.tensor(pos),
+            torch.tensor(tables), tcfg, torch.float32, attn_impl=attn)
+        outs.append(lg)
+    np.testing.assert_allclose(outs[0].numpy(), outs[1].numpy(),
+                               rtol=F32_TOL, atol=F32_TOL)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("start,n_valid", [(5, 6), (9, 8)],
+                         ids=["inside", "past_table"])
+def test_paged_chunk_extend(model, dt, start, n_valid):
+    """Pad rows and rows past the table are not written; the returned
+    last-row logits and the pool agree with JAX."""
+    jdt, tdt, tol = DTYPES[dt]
+    jcfg, jparams, tcfg, tparams = model
+    pool, tables, _, _ = _paged_problem(jcfg, seed=9)
+    row = tables[0]
+    tokens = np.zeros(8, np.int32)
+    tokens[:n_valid] = np.random.default_rng(9).integers(0, 96, n_valid)
+    jc, jl = jtr.paged_chunk_extend(
+        jparams, {k: jnp.asarray(v, jdt) for k, v in pool.items()},
+        jnp.asarray(row), jnp.asarray(tokens), jnp.asarray(start, jnp.int32),
+        jnp.asarray(n_valid, jnp.int32), jcfg, jdt)
+    tcache = {k: torch.tensor(v).to(tdt) for k, v in pool.items()}
+    tc, tl = tr.paged_chunk_extend(tparams, tcache, torch.tensor(row),
+                                   torch.tensor(tokens), start, n_valid,
+                                   tcfg, tdt)
+    _close(tl, jl, tol)
+    for k in ("k", "v"):
+        _close(tc[k], jc[k], tol)
+
+
+def test_init_params_shapes_and_scales():
+    """Torch-generated weights have ``tr.init_params``'s shapes, float32
+    norms, and the fan-in scale of the truncated normal."""
+    cfg = bridge.config_from_jax(dataclasses.asdict(_tiny()))
+    params = tr.init_params(cfg, torch.Generator().manual_seed(0),
+                            dtype=torch.bfloat16, device="cpu")
+    jshapes = jax.tree_util.tree_map(
+        lambda a: a.shape, jtr.abstract_params(_tiny()))
+    tshapes = jax.tree_util.tree_map(lambda t: tuple(t.shape),
+                                     params.tree())
+    assert tshapes == jshapes
+    layers = params["layers"]
+    assert layers["ln1"].dtype == torch.float32
+    assert layers["wq"].dtype == torch.bfloat16
+    assert float(layers["wq"].float().abs().max()) <= 3.0 / np.sqrt(48) + 1e-2
+    # the standard deviation of N(0, 1) cut at +-3 is 0.9866
+    assert abs(float(layers["w_down"].float().std()) * np.sqrt(64)
+               - 0.9866) < 0.05
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tr.moe_ffn(None, None, None)
