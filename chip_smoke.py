@@ -1,20 +1,26 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-Drives the port's main path once -- ``RAGServer`` over ``RAGEngine`` with
-IBM Granite-3.0-2B at full width (random weights from a seed), an encoder
-of ENCODER_120M's widths, IVF-PQ retrieval and paged decode attention --
-and holds every CUDA kernel of that path against its plain PyTorch
-version.  Phases, each printed as one JSON line, in order:
+Drives the port's two serving paths -- ``RAGServer`` over ``RAGEngine``
+with IBM Granite-3.0-2B at full width (random weights from a seed), an
+encoder of ENCODER_120M's widths with Granite's vocabulary, and IVF-PQ
+retrieval -- and holds every CUDA kernel of those paths against its plain
+PyTorch version.  The paged path decodes through the paged-decode kernel;
+the dense path decodes through the dense decode kernel, behind every
+pre-prefill stage of ``full_pipeline`` (rewrite, multi-query fan-out,
+rerank, safety filter).  Phases, each printed as one JSON line, in order:
 
-  device    card name, ``nvidia-smi`` name and power limit, TF32 flags
-  build     nvcc build of ``src/repro_torch/csrc/*.cu`` (seconds)
-  setup     model weights, corpus encode, IVF-PQ index, engine
-  kernels   each kernel vs its plain version at the main path's shapes
-  serve     16 Poisson-arriving questions through the server; every
-            kernel's launch count over this phase alone
-  check     teacher-forced decode step, kernel vs plain attention, and
-            IVF-PQ search with and without the scan kernel
+  device       card name, ``nvidia-smi`` name and power limit, TF32 flags
+  build        nvcc build of ``src/repro_torch/csrc/*.cu`` (seconds)
+  setup        model weights, corpus encode, IVF-PQ index, both engines
+  kernels      each kernel vs its plain version at its path's shapes
+  serve        16 Poisson-arriving questions through the paged engine;
+               every kernel's launch count over this phase alone
+  serve_dense  8 Poisson-arriving questions through the dense engine and
+               its five stage executors; launch counts over this phase
+  check        teacher-forced decode step on each pool, kernel vs plain
+               attention, and IVF-PQ search with and without the scan
+               kernel
 
 then the ``{"kernels": [...]}`` line, the raw ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``.  Any failed check raises
@@ -45,7 +51,13 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 
 QPS = 8.0                 # Poisson arrival rate of the serve phase
 N_QUESTIONS = 16
+DENSE_QPS = 4.0           # ... and of the serve_dense phase
+N_DENSE_QUESTIONS = 8
+NEW_TOKENS = 32
 TIMING_REPS = 50
+# the stage executors of repro/configs/rag_pipelines.py::full_pipeline
+DENSE_STAGES = ("rewrite", "multi_query", "retrieval", "rerank",
+                "safety_filter")
 
 
 def emit(obj: dict) -> None:
@@ -131,34 +143,53 @@ def phase_setup():
     gen = Component(gen_cfg, tr.init_params(
         gen_cfg, torch.Generator(device="cuda").manual_seed(0),
         dtype=torch.bfloat16, device="cuda"))
-    # ENCODER_120M's widths (repro.core.ragschema), bidirectional
+    # ENCODER_120M's widths (repro.core.ragschema), bidirectional, with the
+    # generator's vocabulary as repro/launch/serve.py sizes its encoder:
+    # rewrite and fan-out hand generated ids to it
     enc_cfg = tr.TransformerConfig(
         name="st-120m", n_layers=12, d_model=768, n_heads=12, n_kv_heads=12,
-        d_head=64, d_ff=3072, vocab_size=30522, causal=False)
+        d_head=64, d_ff=3072, vocab_size=gen_cfg.vocab_size, causal=False)
     enc = Component(enc_cfg, tr.init_params(
         enc_cfg, torch.Generator(device="cuda").manual_seed(1),
         dtype=torch.float32, device="cuda"))
     corpus, _topics, make_q = topical_corpus(4096, 256, enc_cfg.vocab_size)
     cfg = EngineConfig(decode_slots=8, s_max=1024, page_size=16,
-                       retrieval_k=2, max_new_tokens=32,
+                       retrieval_k=2, max_new_tokens=NEW_TOKENS,
                        retrieval_backend="ivfpq")
     engine = RAGEngine(gen, enc, corpus, cfg, device="cuda")
+    # full_pipeline's schema values; its 8B rewriter has no config in the
+    # port, so Granite rewrites too, and the encoder reranks and screens
+    dense_cfg = EngineConfig(decode_slots=8, s_max=1024, paged=False,
+                             retrieval_k=2, max_new_tokens=NEW_TOKENS,
+                             retrieval_backend="ivfpq", rewrite_tokens=32,
+                             fanout_queries=2, fanout_tokens=16, rerank=True,
+                             rerank_candidates=16, safety_threshold=0.0)
+    dense = RAGEngine(gen, enc, corpus, dense_cfg, rewriter=gen,
+                      reranker=enc, safety=enc,
+                      db_vectors=engine.db_vectors,
+                      backend=engine.backend.chain[0], device="cuda")
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in gen.params.buffers())
     gen_bytes = sum(t.numel() * t.element_size()
                     for t in gen.params.buffers())
     pool_bytes = sum(v.numel() * v.element_size()
                      for v in engine.pool.cache.values())
+    dense_bytes = sum(v.numel() * v.element_size()
+                      for v in dense.pool.cache.values())
     index = engine.backend.chain[0].index
     emit({"phase": "setup", "seconds": time.perf_counter() - t0,
           "model": gen_cfg.name, "params": n_params,
           "param_bytes": gen_bytes, "kv_pages": engine.pool.n_pages,
-          "kv_pool_bytes": pool_bytes, "corpus": list(corpus.shape),
+          "kv_pool_bytes": pool_bytes, "dense_kv_bytes": dense_bytes,
+          "dense_executors": [e.name for e in dense.executors],
+          "encoder_vocab": enc_cfg.vocab_size, "corpus": list(corpus.shape),
           "ivf_lists": index.n_lists, "ivf_list_len": index.list_ids.shape[1],
           "pq_subq": index.n_subq, "nprobe": engine.backend.chain[0].nprobe,
           "attn_impl": engine.attn_impl})
+    if [e.name for e in dense.executors] != list(DENSE_STAGES):
+        raise AssertionError(f"dense engine executors: {dense.executors}")
     questions = [make_q(i % 8) for i in range(N_QUESTIONS)]
-    return engine, questions
+    return engine, dense, questions
 
 
 def check_paged_attention() -> dict:
@@ -226,6 +257,71 @@ def check_paged_attention() -> dict:
     return out
 
 
+def check_decode_attention() -> dict:
+    """Kernel vs plain version at the dense path's widths (B=8, S=1,024,
+    H_kv=8, G=4, D=64), bf16 and f32, over lengths 1, a non-multiple of
+    the tile, S, S + 1 (clamps to S), two equal rows, 16 and 1,000.  One
+    ``scaled_dot_product_attention`` call on the same inputs is timed as a
+    yardstick (``library_ms``); the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+    b, s, h_kv, g, d = 8, 1024, 8, 4, 64
+    lengths = [1, 537, s, s + 1, 300, 300, 16, 1000]
+    rng = np.random.default_rng(2)
+    out = {"tol_reason": "kernel and plain version both keep f32 softmax "
+                         "statistics and round the f32 result once; they "
+                         "sum in other orders, so bf16 outputs of order "
+                         "one differ by at most about one bf16 step"}
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-5)):
+        q = torch.tensor(rng.standard_normal((b, h_kv, g, d)),
+                         dtype=dtype, device="cuda")
+        k = torch.tensor(rng.standard_normal((b, s, h_kv, d)),
+                         dtype=dtype, device="cuda")
+        v = torch.tensor(rng.standard_normal((b, s, h_kv, d)),
+                         dtype=dtype, device="cuda")
+        ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        got = da.decode_attention_cuda(q, k, v, ln)
+        want = decode_attention_ref(q, k, v, ln)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        if not err <= tol:
+            raise AssertionError(f"decode attention {dtype}: max abs err "
+                                 f"{err} > {tol}")
+        out[str(dtype).removeprefix("torch.")] = {"max_abs_err": err,
+                                                  "tol": tol}
+        if dtype is not torch.bfloat16:
+            continue
+        ms = device_ms(lambda: da.decode_attention_cuda(q, k, v, ln))
+        plain_ms = device_ms(lambda: decode_attention_ref(q, k, v, ln))
+        # the library call: (B, H, 1, D) queries over (B, H_kv, S, D) views
+        # of the same caches, a (B, 1, 1, S) boolean mask of the lengths
+        qs = q.reshape(b, h_kv * g, 1, d)
+        ks, vs = k.transpose(1, 2), v.transpose(1, 2)
+        mask = (torch.arange(s, device="cuda")[None, :]
+                < ln[:, None])[:, None, None, :]
+
+        def library():
+            return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                                  enable_gqa=True)
+        lib_err = float((library().reshape(b, h_kv, g, d).float()
+                         - want.float()).abs().max())
+        library_ms = device_ms(library)
+        # bytes the work needs: each K/V row up to its clamped length once,
+        # q, the lengths, the output
+        n_pos = sum(min(x, s) for x in lengths)
+        n_bytes = (2 * n_pos * h_kv * d * 2 + 2 * q.numel() * 2 + 4 * b)
+        bound_ms, bound_by = bound(n_bytes, 4 * n_pos * h_kv * g * d,
+                                   "bfloat16")
+        out.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   library_max_abs_err=lib_err, bound_ms=bound_ms,
+                   bound_by=bound_by, max_abs_err=err,
+                   shape=[b, s, h_kv, g, d], lengths=lengths)
+    return out
+
+
 def check_pq_scan(rows: int, list_len: int, n_subq: int) -> dict:
     """Kernel vs plain version, bit-equal in f32, at the scan shape one
     search of the serve phase gives: (Q*nprobe, list_len, S)."""
@@ -266,33 +362,30 @@ def phase_kernels(engine) -> dict:
     pq = check_pq_scan(rows, index.list_ids.shape[1], index.n_subq)
     emit({"phase": "kernels", "kernel": "pq_scan", "tol": "bit-equal",
           **pq})
+    dense = check_decode_attention()
+    emit({"phase": "kernels", "kernel": "decode_attention", **dense})
     torch.cuda.synchronize()
-    return {"paged_decode_attention": pa, "pq_scan": pq}
+    return {"paged_decode_attention": pa, "pq_scan": pq,
+            "decode_attention": dense}
 
 
 def phase_serve(engine, questions) -> dict:
     import torch
-    from repro_torch.kernels.paged_attention import ops as pa
-    from repro_torch.kernels.pq_scan import ops as pq
-    from repro_torch.serving.request import State
     from repro_torch.serving.server import RAGServer, poisson_offsets
 
     server = RAGServer(engine)
     torch.cuda.reset_peak_memory_stats()
-    pa.paged_decode_attention.launches = 0
-    pq.pq_scan.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     handles = server.replay(questions,
                             poisson_offsets(QPS, len(questions), seed=0))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"paged_decode_attention": pa.paged_decode_attention.launches,
-                "pq_scan": pq.pq_scan.launches}
+    launches = read_launches()
     snap = engine.metrics_snapshot()
     summary = server.summary()
     steps = snap["decode_host_syncs"]            # decode steps that stepped
     searches = snap["histograms"]["stage_seconds:retrieve"]["count"]
-    vocab = engine.gen.cfg.vocab_size
     result = {
         "phase": "serve", "wall_s": wall, "n_done": summary["n_done"],
         "qps": summary["qps"], "ttft_s": summary["ttft_s"],
@@ -305,9 +398,45 @@ def phase_serve(engine, questions) -> dict:
         "attn_impl": snap["attn_impl"], "launches": launches,
         "first_output": handles[0].output[:8]}
     emit(result)
+    check_served(engine, handles, questions, snap)
+    n_layers = engine.gen.cfg.n_layers
+    if launches["paged_decode_attention"] != n_layers * steps:
+        raise AssertionError(f"paged attention launched "
+                             f"{launches['paged_decode_attention']} times, "
+                             f"expected {n_layers} x {steps}")
+    if launches["decode_attention"] != 0:
+        raise AssertionError("the dense kernel ran on the paged path")
+    if launches["pq_scan"] < searches or searches < len(questions):
+        raise AssertionError(f"pq_scan launched {launches['pq_scan']} "
+                             f"times for {searches} searches")
+    return result
+
+
+def reset_launches() -> None:
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.paged_attention import ops as pa
+    from repro_torch.kernels.pq_scan import ops as pq
+    for fn in (pa.paged_decode_attention, pq.pq_scan, da.decode_attention):
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.paged_attention import ops as pa
+    from repro_torch.kernels.pq_scan import ops as pq
+    return {"paged_decode_attention": pa.paged_decode_attention.launches,
+            "pq_scan": pq.pq_scan.launches,
+            "decode_attention": da.decode_attention.launches}
+
+
+def check_served(engine, handles, questions, snap) -> None:
+    """Every request DONE with NEW_TOKENS in-vocabulary tokens and
+    in-corpus documents, through the CUDA attention kernel."""
+    from repro_torch.serving.request import State
+    vocab = engine.gen.cfg.vocab_size
     for h in handles:
         r = h.request
-        if r.state is not State.DONE or len(r.output) != 32:
+        if r.state is not State.DONE or len(r.output) != NEW_TOKENS:
             raise AssertionError(f"request {r.rid}: {r.state} with "
                                  f"{len(r.output)} tokens")
         if not all(0 <= t < vocab for t in r.output):
@@ -318,30 +447,121 @@ def phase_serve(engine, questions) -> dict:
         raise AssertionError(f"{len(handles)} of {len(questions)} served")
     if snap["attn_impl"] != "cuda":
         raise AssertionError(f"attn_impl resolved to {snap['attn_impl']}")
-    n_layers = engine.gen.cfg.n_layers
-    if launches["paged_decode_attention"] != n_layers * steps:
-        raise AssertionError(f"paged attention launched "
-                             f"{launches['paged_decode_attention']} times, "
+
+
+def phase_serve_dense(dense, questions) -> dict:
+    """The dense pool behind every stage of full_pipeline: rewrite (32
+    tokens), fan-out (one 16-token variant), IVF-PQ retrieval of 16
+    candidates, rerank to 2, the safety screen, prefill, 32 decode steps."""
+    import torch
+    from repro_torch.serving.kv_cache import KVCachePool
+    from repro_torch.serving.server import RAGServer, poisson_offsets
+
+    questions = questions[:N_DENSE_QUESTIONS]
+    server = RAGServer(dense)
+    reset_launches()
+    t0 = time.perf_counter()
+    handles = server.replay(questions,
+                            poisson_offsets(DENSE_QPS, len(questions), seed=1))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    snap = dense.metrics_snapshot()
+    summary = server.summary()
+    steps = snap["decode_host_syncs"]
+    searches = snap["histograms"]["stage_seconds:retrieve"]["count"]
+    stage_time = snap["stage_time_s"]
+    first = handles[0].request
+    result = {
+        "phase": "serve_dense", "wall_s": wall, "n_done": summary["n_done"],
+        "qps": summary["qps"], "ttft_s": summary["ttft_s"],
+        "ttft_p99_s": summary["ttft_p99_s"], "tpot_s": summary["tpot_s"],
+        "tpot_p99_s": summary["tpot_p99_s"], "stage_time_s": stage_time,
+        "decode_steps": steps, "searches": searches,
+        "prefills": snap["prefills"], "cache_copy_bytes":
+        snap["cache_copy_bytes"], "attn_impl": snap["attn_impl"],
+        "launches": launches, "first_output": first.output[:8],
+        "first_rewritten_len": len(first.rewritten),
+        "first_variants": len(first.query_variants),
+        "first_safety_scores": first.safety_scores}
+    emit(result)
+    if not isinstance(dense.pool, KVCachePool):
+        raise AssertionError("the dense engine is not on the dense pool")
+    check_served(dense, handles, questions, snap)
+    missing = [n for n in DENSE_STAGES if not stage_time.get(n, 0) > 0]
+    if missing:
+        raise AssertionError(f"no stage time for executors {missing}")
+    for h in handles:
+        r = h.request
+        if (len(r.rewritten) != len(r.question) + 32
+                or len(r.query_variants) != 2 or not r.safety_scores):
+            raise AssertionError(f"request {r.rid}: a stage did not run")
+    n_layers = dense.gen.cfg.n_layers
+    if launches["decode_attention"] != n_layers * steps:
+        raise AssertionError(f"dense attention launched "
+                             f"{launches['decode_attention']} times, "
                              f"expected {n_layers} x {steps}")
-    if launches["pq_scan"] < searches or searches < len(questions):
+    if launches["paged_decode_attention"] != 0:
+        raise AssertionError("the paged kernel ran on the dense path")
+    if launches["pq_scan"] < searches or searches < 2 * len(questions):
         raise AssertionError(f"pq_scan launched {launches['pq_scan']} "
                              f"times for {searches} searches")
     return result
 
 
-def phase_check(engine, questions) -> dict:
-    """One teacher-forced decode step of the full-width model on the serve
-    phase's pool, plain attention vs the kernel; and IVF-PQ search with the
-    scan kernel vs the plain scan."""
+def compare_logits(name: str, plain, kern) -> dict:
+    """Teacher-forced logits of one decode step, plain attention vs the
+    kernel: allclose, and the same argmax wherever the plain top-2 margin
+    is wide.  Raises after printing the numbers when either fails."""
     import torch
+    if not (torch.isfinite(plain).all() and torch.isfinite(kern).all()):
+        raise AssertionError(f"{name}: non-finite logits")
+    # the plain path rounds softmax probabilities to bf16 before P@V, the
+    # kernel keeps them f32; over 40 bf16 layers that moves logits of
+    # magnitude ~|x| by a few bf16 steps (2^-8 relative each)
+    atol = rtol = 0.1
+    diff = (plain - kern).abs()
+    top2 = torch.topk(plain, 2, dim=-1).values
+    decided = top2[:, 0] - top2[:, 1] > 2 * atol
+    same_argmax = plain.argmax(-1) == kern.argmax(-1)
+    result = {"slots": int(plain.shape[0]),
+              "logits_max_abs_diff": float(diff.max()),
+              "logits_max_abs": float(plain.abs().max()),
+              "atol": atol, "rtol": rtol,
+              "argmax_equal": int(same_argmax.sum()),
+              "argmax_decided": int(decided.sum())}
+    if not torch.allclose(kern, plain, rtol=rtol, atol=atol):
+        emit({"phase": "check", name: result})
+        raise AssertionError(f"{name}: teacher-forced logits differ beyond "
+                             f"tolerance")
+    if not bool(same_argmax[decided].all()):
+        emit({"phase": "check", name: result})
+        raise AssertionError(f"{name}: argmax differs where the top-2 "
+                             f"margin is wide")
+    return result
+
+
+def phase_check(engine, dense, questions) -> dict:
+    """One teacher-forced decode step of the full-width model on each pool,
+    every slot filled, plain attention vs the kernel; and IVF-PQ search
+    with the scan kernel vs the plain scan."""
+    import torch
+    from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.paged_attention.ops import paged_decode_attention
     from repro_torch.models import transformer as tr
     from repro_torch.retrieval.ivf_pq import search
     from repro_torch.serving.request import Request, State
 
-    # fill every slot: admit + prefill 8 fresh requests, then one step
+    result = {"phase": "check",
+              "tol_reason": "plain attention rounds probabilities to bf16, "
+                            "the kernel keeps f32; 40 bf16 layers carry "
+                            "that to a few bf16 steps of each logit"}
+    vocab = engine.gen.cfg.vocab_size
+    dev = engine.device
+    # paged: admit + prefill 8 fresh requests, then one step
     for q in questions[:engine.cfg.decode_slots]:
-        engine.queue.append(Request(question=q.copy(), max_new_tokens=32))
+        engine.queue.append(Request(question=q.copy(),
+                                    max_new_tokens=NEW_TOKENS))
     engine.tick()
     slots = sorted(s for s, r in engine.active.items()
                    if r.state is State.DECODE)
@@ -352,7 +572,6 @@ def phase_check(engine, questions) -> dict:
         engine.pool.prepare_append(s, 1)
     mask = np.zeros(n, bool)
     mask[slots] = True
-    dev = engine.device
     args = (torch.tensor(tokens, device=dev), engine.pool.positions(),
             torch.tensor(engine.pool.block_tables(), device=dev))
     logits = {}
@@ -362,35 +581,39 @@ def phase_check(engine, questions) -> dict:
         lg, _ = tr.paged_decode_step(
             engine.gen.params, engine.pool.cache, *args, engine.gen.cfg,
             attn_impl=attn, write_mask=torch.tensor(mask, device=dev))
-        logits[name] = lg[slots, :engine.gen.cfg.vocab_size].float()
+        logits[name] = lg[slots, :vocab].float()
     torch.cuda.synchronize()
-    plain, kern = logits["plain"], logits["kernel"]
-    if not (torch.isfinite(plain).all() and torch.isfinite(kern).all()):
-        raise AssertionError("non-finite logits")
-    # the plain path rounds softmax probabilities to bf16 before P@V, the
-    # kernel keeps them f32; over 40 bf16 layers that moves logits of
-    # magnitude ~|x| by a few bf16 steps (2^-8 relative each)
-    atol = rtol = 0.1
-    diff = (plain - kern).abs()
-    top2 = torch.topk(plain, 2, dim=-1).values
-    margin = top2[:, 0] - top2[:, 1]
-    decided = margin > 2 * atol
-    same_argmax = plain.argmax(-1) == kern.argmax(-1)
-    result = {"phase": "check", "slots": len(slots),
-              "tol_reason": "plain attention rounds probabilities to bf16, "
-                            "the kernel keeps f32; 40 bf16 layers carry "
-                            "that to a few bf16 steps of each logit",
-              "logits_max_abs_diff": float(diff.max()),
-              "logits_max_abs": float(plain.abs().max()),
-              "atol": atol, "rtol": rtol,
-              "argmax_equal": int(same_argmax.sum()),
-              "argmax_decided": int(decided.sum())}
-    if not torch.allclose(kern, plain, rtol=rtol, atol=atol):
-        emit(result)
-        raise AssertionError("teacher-forced logits differ beyond tolerance")
-    if not bool(same_argmax[decided].all()):
-        emit(result)
-        raise AssertionError("argmax differs where the top-2 margin is wide")
+    result["paged"] = compare_logits("paged", logits["plain"],
+                                     logits["kernel"])
+
+    # dense: prefill 8 prompts of two retrieved documents + the question
+    # straight into the slots (the stage executors ran in serve_dense)
+    for q in questions[:dense.cfg.decode_slots]:
+        req = Request(question=q.copy(), max_new_tokens=NEW_TOKENS)
+        req.candidate_ids = dense.retrieve(q[None], dense.cfg.retrieval_k)[0]
+        req.prompt = dense._assemble_prompt(req)
+        slot = dense.pool.alloc(req.rid)
+        dense._prefill(req, slot)
+        dense.active[slot] = req
+    slots = sorted(dense.active)
+    tokens = np.zeros(dense.pool.n_slots, np.int32)
+    for s in slots:
+        tokens[s] = dense.active[s].output[-1]
+    mask = np.zeros(dense.pool.n_slots, bool)
+    mask[slots] = True
+    logits = {}
+    for name, attn in (("plain", None), ("kernel", decode_attention)):
+        lg, _ = tr.decode_step(
+            dense.gen.params, dense.pool.cache,
+            torch.tensor(tokens, device=dev), dense.pool.positions(),
+            dense.gen.cfg, attn_impl=attn,
+            write_mask=torch.tensor(mask, device=dev))
+        logits[name] = lg[slots, :vocab].float()
+    torch.cuda.synchronize()
+    result["dense"] = compare_logits("dense", logits["plain"],
+                                     logits["kernel"])
+    result["dense"]["prompt_lengths"] = [int(dense.pool.lengths[s])
+                                         for s in slots]
 
     # retrieval: the scan kernel and the plain scan give the same search
     backend = engine.backend.chain[0]
@@ -403,8 +626,9 @@ def phase_check(engine, questions) -> dict:
         raise AssertionError("IVF-PQ search differs with the scan kernel")
     result["search_ids_equal"] = True
     emit(result)
-    for slot in list(engine.active):
-        engine.abort_request(engine.active[slot], "smoke check done")
+    for eng in (engine, dense):
+        for slot in list(eng.active):
+            eng.abort_request(eng.active[slot], "smoke check done")
     return result
 
 
@@ -473,10 +697,11 @@ def main() -> int:
 
     dev = phase_device()
     phase_build()
-    engine, questions = phase_setup()
+    engine, dense, questions = phase_setup()
     checks = phase_kernels(engine)
     served = phase_serve(engine, questions)
-    phase_check(engine, questions)
+    served_dense = phase_serve_dense(dense, questions)
+    phase_check(engine, dense, questions)
     if profile_decode:
         phase_profile(engine, questions)
 
@@ -486,16 +711,25 @@ def main() -> int:
             "src/repro/kernels/paged_attention/paged_attention.py:112"),
         "pq_scan": ("src/repro_torch/csrc/pq_scan.cu",
                     "src/repro/kernels/pq_scan/pq_scan.py:35"),
+        "decode_attention": (
+            "src/repro_torch/csrc/decode_attention.cu",
+            "src/repro/kernels/decode_attention/decode_attention.py:70"),
     }
+    # each kernel's launches on the path it serves: the paged serve phase
+    # for paged attention and the PQ scan, serve_dense for dense attention
+    launches = {**served["launches"],
+                "decode_attention":
+                served_dense["launches"]["decode_attention"]}
     kernels = []
     for name, (source, replaces) in sources.items():
         c = checks[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": served["launches"][name],
+            "replaces": replaces, "launches": launches[name],
             "max_abs_err": c["max_abs_err"], "ms": c["ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
-            "bound_by": c["bound_by"], "library_ms": None})
+            "bound_by": c["bound_by"],
+            "library_ms": c.get("library_ms")})
     emit({"kernels": kernels})
     print(dev["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],

@@ -3,8 +3,9 @@
 Every ``csrc/*.cu`` compiles for ``sm_90a`` to an object file -- one
 ``nvcc`` per source, all started together -- and the objects link into
 ``build/repro_torch/libkernels.so`` at the root of the checkout.  A hash
-of the sources and flags is stored beside the library: an unchanged
-source tree loads the library already built, a changed one rebuilds.
+of the sources, the headers they share (``csrc/*.cuh``) and the flags is
+stored beside the library: an unchanged source tree loads the library
+already built, a changed one rebuilds.
 
 The sources expose a plain C interface (pointers, ints, the stream), so
 no PyTorch header is compiled and a build takes seconds.
@@ -45,7 +46,7 @@ def sources() -> list[Path]:
 
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode() + b"\0" + src.read_bytes())
     return h.hexdigest()
 

@@ -1,0 +1,88 @@
+"""Engine-facing wrapper of the dense decode attention kernel.
+
+Same contract as ``repro.kernels.decode_attention.ops``: q for one decode
+token, one layer's dense caches (B, S, H_kv, D) and the per-sequence
+lengths.  Query heads are grouped (H_kv, q_per_kv) so each cache row
+serves all of a KV head's query heads.  Unlike the JAX wrapper, S is not
+padded to a tile multiple: the kernel masks the ragged end itself.
+
+A CUDA tensor launches ``csrc/decode_attention.cu`` (or the wrapper
+raises on a dtype, shape or layout the kernel does not take); a CPU
+tensor goes to the plain version, ``ref.decode_attention_ref``.
+``decode_attention.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+_ENTRY = {torch.float32: "decode_attention_f32",
+          torch.bfloat16: "decode_attention_bf16"}
+HEAD_DIMS = (16, 32, 64, 128)      # head widths the kernel is built for
+
+
+def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
+                          v_cache: torch.Tensor,
+                          cache_len: torch.Tensor) -> torch.Tensor:
+    """Launch the kernel.  q: (B, H_kv, G, D); caches: (B, S, H_kv, D);
+    cache_len: (B,) int32 -> (B, H_kv, G, D)."""
+    b, h_kv, g, d = q.shape
+    s = k_cache.shape[1]
+    tensors = (q, k_cache, v_cache, cache_len)
+    if not q.is_cuda or any(t.device != q.device for t in tensors):
+        raise ValueError("decode_attention: all inputs must be on one CUDA "
+                         "device")
+    if q.dtype not in _ENTRY or k_cache.dtype != q.dtype \
+            or v_cache.dtype != q.dtype:
+        raise TypeError(f"decode_attention takes float32 or bfloat16 q/k/v "
+                        f"of one dtype, got {q.dtype}, {k_cache.dtype}, "
+                        f"{v_cache.dtype}")
+    if cache_len.dtype != torch.int32:
+        raise TypeError("decode_attention takes int32 cache lengths")
+    if (k_cache.shape != v_cache.shape or k_cache.dim() != 4
+            or k_cache.shape[0] != b or k_cache.shape[2:] != (h_kv, d)
+            or cache_len.shape != (b,)):
+        raise ValueError(f"decode_attention: shapes do not match: q "
+                         f"{tuple(q.shape)}, caches {tuple(k_cache.shape)}, "
+                         f"cache_len {tuple(cache_len.shape)}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"decode_attention: head dim {d} is not one of "
+                         f"{HEAD_DIMS}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("decode_attention needs contiguous inputs")
+    if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
+        raise ValueError("decode_attention reads K/V rows in 16-byte loads: "
+                         "the caches must be 16-byte aligned")
+    out = torch.empty_like(q)
+    fn = _build.function(_ENTRY[q.dtype], 5, 5)
+    err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+             cache_len.data_ptr(), out.data_ptr(), b, s, h_kv, g, d,
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(_ENTRY[q.dtype], err)
+    decode_attention.launches += 1
+    return out
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor,
+                     cache_len: torch.Tensor) -> torch.Tensor:
+    """q: (B, 1, H, D) or (B, H, D); caches: (B, S, H_kv, D); cache_len:
+    (B,) -> same shape as q."""
+    squeeze = q.dim() == 4
+    if squeeze:
+        q = q[:, 0]
+    b, h, d = q.shape
+    h_kv = k_cache.shape[2]
+    qg = q.reshape(b, h_kv, h // h_kv, d).contiguous()
+    if q.is_cuda:
+        out = decode_attention_cuda(qg, k_cache, v_cache, cache_len)
+    else:
+        out = decode_attention_ref(qg, k_cache, v_cache, cache_len)
+    out = out.reshape(b, h, d)
+    return out[:, None] if squeeze else out
+
+
+decode_attention.launches = 0

@@ -7,10 +7,12 @@ JAX package's names and signatures.  A Python loop over layers takes the
 place of ``jax.lax.scan``.
 
 Serving subset: ``forward`` (full sequence, optional KV collection),
-``encode``, ``make_paged_cache``, ``paged_decode_step`` and
-``paged_chunk_extend``.  JAX returns a new page pool from the paged entry
-points; the port scatters into the pool IN PLACE and returns the same
-dict, so a step costs no copy of the pool.
+``encode``, the dense-cache entry points ``make_cache``, ``decode_step``,
+``chunk_extend`` and ``greedy_generate``, and the paged ones
+``make_paged_cache``, ``paged_decode_step`` and ``paged_chunk_extend``.
+JAX returns a new cache from the decode and extend entry points; the port
+writes into the cache IN PLACE and returns the same dict, so a step costs
+no copy of the cache.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import math
 from dataclasses import dataclass
 from typing import Any
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -292,6 +295,178 @@ def encode(params: TransformerParams, tokens: torch.Tensor,
     h = forward(params, tokens, cfg, compute_dtype, return_hidden=True)
     pooled = torch.mean(h.float(), dim=1)
     return pooled / (torch.linalg.norm(pooled, dim=-1, keepdim=True) + 1e-6)
+
+
+def check_ids(tokens, cfg: TransformerConfig) -> None:
+    """Refuse host token ids the embedding table has no row for.
+
+    Ids in ``[vocab_size, padded_vocab)`` read the pad rows, as in JAX.  An
+    id ``>= padded_vocab`` raises ``ValueError``: JAX's ``jnp.take`` gives
+    a row of NaN for it, and ``embed[tokens]`` would raise on the CPU and
+    hit a device-side assert on the card, which ends the CUDA context.
+    Generated ids of a model with a larger vocabulary reach an encoder
+    this way (rewrite, multi-query fan-out, iterative retrieval)."""
+    tokens = np.asarray(tokens)
+    bad = tokens[tokens >= cfg.padded_vocab]
+    if bad.size:
+        raise ValueError(
+            f"token id {int(bad[0])} is outside {cfg.name}'s embedding table "
+            f"of {cfg.padded_vocab} rows (padded_vocab)")
+
+
+# ---------------------------------------------------------------------------
+# Dense KV cache entry points
+# ---------------------------------------------------------------------------
+#
+# Layout: {"k","v"}: (L, B, S_max, H_kv, D), one S_max-wide row per
+# sequence.  JAX drops out-of-bounds scatter rows (mode="drop"); PyTorch has
+# no drop mode and an out-of-bounds index on CUDA is a device-side assert,
+# so the port computes the valid rows first and writes only those.
+
+def make_cache(cfg: TransformerConfig, batch: int, s_max: int,
+               dtype=torch.bfloat16, device=None) -> dict:
+    shape = (cfg.n_layers, batch, s_max, cfg.n_kv_heads, cfg.d_head)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def decode_step(params: TransformerParams, cache: dict, token: torch.Tensor,
+                pos: torch.Tensor, cfg: TransformerConfig,
+                compute_dtype=torch.bfloat16, attn_impl=None,
+                write_mask: torch.Tensor | None = None):
+    """One autoregressive step against a dense KV cache.
+
+    cache: {"k","v"}: (L, B, S_max, H_kv, D).  token: (B,) int32.  pos:
+    (B,) int32, the next position per sequence (== its cache length).  Row
+    b's K/V is written at position ``pos[b]``; a row at ``pos == S_max``
+    (JAX drops it out of bounds) or with ``write_mask`` False is not
+    written.  JAX's engine writes every row and then merges the old cache
+    back into the rows that are not stepping; the mask gives that merged
+    cache without the merge.  The cache is updated in place.
+
+    ``attn_impl(q, k_cache, v_cache, cache_len) -> (B, 1, H, D)`` gets the
+    layer's post-write (B, S_max, H_kv, D) caches; the default repeats KV
+    heads and runs the reference masked softmax.  Returns (logits (B, V),
+    cache).
+    """
+    B = token.shape[0]
+    s_max = cache["k"].shape[2]
+    h_kv, d = cfg.n_kv_heads, cfg.d_head
+    embed = cm.maybe_dequant(params["embed"], compute_dtype)
+    x = embed[token][:, None, :]                                  # (B, 1, d)
+    pos_l = pos.long()
+    valid = pos_l < s_max
+    if write_mask is not None:
+        valid = valid & write_mask.to(valid.device)
+    rows = torch.nonzero(valid)[:, 0]          # one host sync, for all layers
+    flat = rows * s_max + pos_l[rows]
+    attn = attn_impl
+    if attn is None:
+        def attn(q, kc, vc, cache_len):
+            return cm.decode_attention_ref(q, cm.repeat_kv(kc, cfg.q_per_kv),
+                                           cm.repeat_kv(vc, cfg.q_per_kv),
+                                           cache_len)
+    cache_len = (pos + 1).to(torch.int32)
+    layers = params["layers"]
+    for i in range(cfg.n_layers):
+        lp = layer_params(layers, i)
+        kc, vc = cache["k"][i], cache["v"][i]          # (B, S_max, H_kv, D)
+        xn = cm.rms_norm(x, lp["ln1"], cfg.norm_eps)
+        q, k_new, v_new = _qkv(xn, lp, cfg, pos[:, None], compute_dtype)
+        kc.view(B * s_max, h_kv, d).index_copy_(
+            0, flat, k_new[rows, 0].to(kc.dtype))
+        vc.view(B * s_max, h_kv, d).index_copy_(
+            0, flat, v_new[rows, 0].to(vc.dtype))
+        # JAX attends over the cache cast to the compute dtype
+        out = attn(q, kc.to(compute_dtype), vc.to(compute_dtype), cache_len)
+        wo = cm.maybe_dequant(lp["wo"], compute_dtype)
+        x = x + (out.reshape(B, 1, cfg.n_heads * d) @ wo).to(x.dtype)
+        x = x + _ffn(cm.rms_norm(x, lp["ln2"], cfg.norm_eps), lp, cfg,
+                     compute_dtype)
+    x = cm.rms_norm(x, params["ln_f"], cfg.norm_eps)
+    logits = _head(params, x, compute_dtype)[:, 0]               # (B, V)
+    return logits, cache
+
+
+def greedy_generate(params: TransformerParams, tokens: torch.Tensor,
+                    lengths: torch.Tensor, cfg: TransformerConfig, n_new: int,
+                    compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """Batched greedy continuation.  tokens: (B, T) int32 prompts,
+    right-padded; lengths: (B,) valid prompt lengths.  Returns (B, n_new)
+    int32 generated tokens.
+
+    One full prefill forward, a per-row first-token argmax, then decode
+    steps against a dense cache of T + n_new positions, with the reference
+    attention as in JAX (which runs no kernel here).  Padding is inert: row
+    b's pad positions >= lengths[b] hold garbage K/V from the prefill, but
+    step i writes position lengths[b]+i before attending up to it.  JAX's
+    scan also runs a last decode step whose token it drops; the port skips
+    that step.
+    """
+    B, T = tokens.shape
+    logits, _aux, prefix = forward(params, tokens, cfg, compute_dtype,
+                                   collect_cache=True)
+    cache = make_cache(cfg, B, T + n_new, prefix["k"].dtype,
+                       device=tokens.device)
+    for k, v in prefix.items():
+        cache[k][:, :, :T] = v
+    lengths = lengths.to(device=tokens.device, dtype=torch.int32)
+    rows = torch.arange(B, device=tokens.device)
+    tok = torch.argmax(logits[rows, lengths.long() - 1, :cfg.vocab_size],
+                       dim=-1).to(torch.int32)
+    out, pos = [tok], lengths
+    for _ in range(n_new - 1):
+        lg, cache = decode_step(params, cache, tok, pos, cfg, compute_dtype)
+        tok = torch.argmax(lg[:, :cfg.vocab_size], dim=-1).to(torch.int32)
+        pos = pos + 1
+        out.append(tok)
+    return torch.stack(out, dim=1)[:, :n_new]
+
+
+def chunk_extend(params: TransformerParams, cache: dict, slot: int,
+                 tokens: torch.Tensor, start_pos: int, n_valid: int,
+                 cfg: TransformerConfig, compute_dtype=torch.bfloat16) -> dict:
+    """Extend ONE dense slot's cache with a chunk of tokens in a single
+    forward (iteration prefill for iterative retrieval).
+
+    tokens: (T,) padded; only the first ``n_valid`` are real.  Chunk token
+    i is written at position ``start_pos + i`` and attends to the slot's
+    positions <= start_pos + i, so the result matches feeding the tokens
+    one decode step at a time.  Pad rows and positions past S_max are not
+    written (JAX drops them).  Returns the cache, updated in place.
+    """
+    s_max = cache["k"].shape[2]
+    T = tokens.shape[0]
+    slot, start_pos, n_valid = int(slot), int(start_pos), int(n_valid)
+    dev = tokens.device
+    embed = cm.maybe_dequant(params["embed"], compute_dtype)
+    x = embed[tokens][None]                                       # (1, T, d)
+    offs = torch.arange(T, device=dev)
+    positions = (start_pos + offs)[None]                          # (1, T)
+    # rows that JAX would not drop: real tokens at positions below S_max
+    n_rows = max(0, min(n_valid, s_max - start_pos, T))
+    scale = 1.0 / math.sqrt(cfg.d_head)
+    mask = (torch.arange(s_max, device=dev)[None, None, None, :]
+            <= positions[0][None, None, :, None])
+    layers = params["layers"]
+    for i in range(cfg.n_layers):
+        lp = layer_params(layers, i)
+        kc, vc = cache["k"][i], cache["v"][i]          # (B, S_max, H_kv, D)
+        xn = cm.rms_norm(x, lp["ln1"], cfg.norm_eps)
+        q, k_new, v_new = _qkv(xn, lp, cfg, positions, compute_dtype)
+        kc[slot, start_pos:start_pos + n_rows] = k_new[0, :n_rows].to(kc.dtype)
+        vc[slot, start_pos:start_pos + n_rows] = v_new[0, :n_rows].to(vc.dtype)
+        kr = cm.repeat_kv(kc[slot][None].to(compute_dtype), cfg.q_per_kv)
+        vr = cm.repeat_kv(vc[slot][None].to(compute_dtype), cfg.q_per_kv)
+        scores = torch.einsum("bqhd,bkhd->bhqk", q, kr).float() * scale
+        scores = torch.where(mask, scores, -math.inf)
+        probs = torch.softmax(scores, dim=-1).to(q.dtype)
+        out = torch.einsum("bhqk,bkhd->bqhd", probs, vr)
+        wo = cm.maybe_dequant(lp["wo"], compute_dtype)
+        x = x + (out.reshape(1, T, cfg.n_heads * cfg.d_head) @ wo).to(x.dtype)
+        x = x + _ffn(cm.rms_norm(x, lp["ln2"], cfg.norm_eps), lp, cfg,
+                     compute_dtype)
+    return cache
 
 
 # ---------------------------------------------------------------------------

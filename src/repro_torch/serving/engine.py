@@ -1,30 +1,40 @@
 """RAG serving engine on PyTorch/CUDA (mirror of ``repro.serving.engine``).
 
-Pipeline per request: embed -> retrieve -> prefill (question + docs) ->
-continuous-batched decode [-> iterative retrieval during decode], over
-the paged KV pool, on one device.
+Pipeline per request, on one device:
+
+  [rewrite] -> [multi-query fan-out] -> embed -> retrieve -> [rerank]
+  -> [safety filter] -> prefill (question + docs) -> continuous-batched
+  decode [-> iterative retrieval during decode]
+
+The pre-prefill stages are the executors of ``repro_torch.serving.
+executors``, chosen by the JAX stage registry's activation rules.
 
 Hot path, as in the JAX engine:
 
 * Retrieval goes through a pluggable backend (``repro_torch.retrieval.
   backend``): exact kNN or IVF-PQ, whose ADC scan is the CUDA ``pq_scan``
   kernel on a CUDA device.
-* KV state lives in the paged pool (``repro_torch.serving.kv_cache``);
-  prompts are bucketed to powers of two, and content-addressed full
-  pages are shared between requests that retrieved the same documents.
-* The decode step is one paged forward + argmax with one (B,)-token
-  device->host copy per step; slots that are not stepping write nothing.
-  Decode attention is the CUDA paged-decode kernel on a CUDA device
-  (``attn_impl="cuda"``) or the gather + masked-softmax reference
-  (``"ref"``).
+* KV state lives in the paged pool by default (``repro_torch.serving.
+  kv_cache``); prompts are bucketed to powers of two, and content-
+  addressed full pages are shared between requests that retrieved the
+  same documents.  ``paged=False`` (implied by ``fused_decode=False``)
+  keeps the dense slot pool.
+* The decode step is one forward + argmax with one (B,)-token
+  device->host copy per step; slots that are not stepping write nothing
+  (on the dense pool that replaces JAX's whole-cache step-mask merge).
+  Decode attention is a CUDA kernel on a CUDA device (``attn_impl=
+  "cuda"``: paged-decode on the paged pool, dense decode on the dense
+  one) or the reference masked softmax (``"ref"``).  ``fused_decode=
+  False`` keeps the pre-fusion path: argmax on the host, and the
+  whole-cache copy JAX makes there counted in ``cache_copy_bytes``.
 * Iteratively retrieved context and chunked prompt prefill share one
-  bucketed chunk-extend forward (``tr.paged_chunk_extend``).
+  bucketed chunk-extend forward (``tr.paged_chunk_extend``; dense:
+  ``tr.chunk_extend``).
 
 PyTorch runs eagerly, so where the JAX engine jit-compiles one program
 per prompt bucket, the port just runs the forward; ``prefill_compiles``
 and ``append_compiles`` still count distinct buckets so the metrics read
-the same.  The dense slot pool (``paged=False``, ``fused_decode=False``)
-is not ported yet and raises.
+the same.
 """
 
 from __future__ import annotations
@@ -42,7 +52,7 @@ from repro_torch.retrieval.backend import (ExactBackend, FallbackBackend,
                                            make_backend)
 from repro_torch.serving.executors import engine_executors
 from repro_torch.serving.faults import EngineCrash, EngineHealth
-from repro_torch.serving.kv_cache import PagedKVCachePool
+from repro_torch.serving.kv_cache import KVCachePool, PagedKVCachePool
 from repro_torch.serving.request import Request, State
 from repro_torch.serving.telemetry import (NULL_TRACER, MetricsRegistry,
                                            stage_kind)
@@ -78,8 +88,8 @@ class EngineConfig:
     retrieval_fallback: bool = True
     fused_decode: bool = True
     # decode attention: "auto" resolves at engine construction to the CUDA
-    # paged kernel on a CUDA device and to the reference gather+softmax
-    # path on the CPU
+    # kernels on a CUDA device and to the reference masked softmax on the
+    # CPU
     attn_impl: str = "auto"              # "auto" | "ref" | "cuda"
     attn_num_buffers: int = 2            # page-load pipelining depth (unused
                                          # by the first CUDA kernel)
@@ -145,10 +155,6 @@ class RAGEngine:
         JAX package).  ``device`` is where the models, the KV pool and the
         index live; the component weights are moved there."""
         self.device = resolve_device(device)
-        if not cfg.paged:
-            raise NotImplementedError(
-                "the dense slot pool (paged=False or fused_decode=False) is "
-                "not ported to repro_torch yet (ROADMAP queue 1)")
         for comp in (generative, encoder, rewriter, reranker, safety):
             if comp is not None:
                 comp.params.to(self.device)
@@ -159,10 +165,13 @@ class RAGEngine:
         self.safety = safety
         self.cfg = cfg
         self.corpus = np.asarray(corpus_tokens)
-        self.pool = PagedKVCachePool(generative.cfg, cfg.decode_slots,
-                                     cfg.s_max, page_size=cfg.page_size,
-                                     spare_pages=cfg.kv_spare_pages,
-                                     device=self.device)
+        self.pool = (PagedKVCachePool(generative.cfg, cfg.decode_slots,
+                                      cfg.s_max, page_size=cfg.page_size,
+                                      spare_pages=cfg.kv_spare_pages,
+                                      device=self.device)
+                     if cfg.paged else
+                     KVCachePool(generative.cfg, cfg.decode_slots, cfg.s_max,
+                                 device=self.device))
         self.queue: list[Request] = []
         self.active: dict[int, Request] = {}     # slot -> request
         self.prefilling: dict[int, int] = {}     # slot -> prompt cursor
@@ -185,7 +194,7 @@ class RAGEngine:
         # resolved decode-attention implementation ("auto" picks by device)
         self.attn_impl = cfg.attn_impl if cfg.attn_impl != "auto" else (
             "cuda" if self.device.type == "cuda" else "ref")
-        self._paged_attn = self._make_attn_impl()
+        self._paged_attn, self._dense_attn = self._make_attn_impls()
         self._prefill_buckets: set[int] = set()
         self._append_buckets: set[int] = set()
         # database embeddings (the paper's offline encode step)
@@ -262,15 +271,16 @@ class RAGEngine:
 
     # ---------------- shared primitives -----------------------------------
 
-    def _make_attn_impl(self):
-        """The paged decode-attention callable for the resolved
-        ``attn_impl``; None keeps ``paged_decode_step``'s built-in
-        reference (gather + masked softmax)."""
+    def _make_attn_impls(self):
+        """The (paged, dense) decode-attention callables for the resolved
+        ``attn_impl``; ``(None, None)`` keeps the decode steps' built-in
+        reference (gather/repeat + masked softmax)."""
         if self.attn_impl == "ref":
-            return None
+            return None, None
+        from repro_torch.kernels.decode_attention.ops import decode_attention
         from repro_torch.kernels.paged_attention.ops import (
             paged_decode_attention)
-        return paged_decode_attention
+        return paged_decode_attention, decode_attention
 
     def has_executor(self, name: str) -> bool:
         return any(ex.name == name for ex in self.executors)
@@ -313,8 +323,10 @@ class RAGEngine:
     def _embed_batched(self, tokens: np.ndarray, bs: int = 32) -> torch.Tensor:
         """Encode rows in fixed-size batches; the final ragged chunk is
         padded to ``bs`` rows and the pad rows are sliced off (each row
-        embeds independently)."""
+        embeds independently).  Raises ``ValueError`` for an id past the
+        encoder's embedding table (``tr.check_ids``; JAX gives NaN)."""
         tokens = np.asarray(tokens)
+        tr.check_ids(tokens, self.enc.cfg)
         outs = []
         for i in range(0, tokens.shape[0], bs):
             chunk = tokens[i:i + bs]
@@ -428,11 +440,24 @@ class RAGEngine:
     # ---------------- decode loop ------------------------------------------
 
     def _append_tokens(self, slot: int, tokens: np.ndarray) -> None:
-        """Append retrieved content into a slot's pages (iteration
+        """Append retrieved content into a slot's cache (iteration
         prefill) with one bucketed chunk-extend forward."""
-        if len(tokens) == 0:
+        t = len(tokens)
+        if t == 0:
             return
-        self._paged_extend(slot, np.asarray(tokens, np.int32))
+        if isinstance(self.pool, PagedKVCachePool):
+            self._paged_extend(slot, np.asarray(tokens, np.int32))
+            return
+        bucket = bucket_len(t)
+        if bucket not in self._append_buckets:
+            self._append_buckets.add(bucket)
+            self.metrics["append_compiles"] += 1
+        padded = np.zeros(bucket, np.int32)
+        padded[:t] = tokens
+        self.pool.cache = tr.chunk_extend(
+            self.gen.params, self.pool.cache, slot, self._tensor(padded),
+            int(self.pool.lengths[slot]), t, self.gen.cfg)
+        self.pool.lengths[slot] += t
 
     def _paged_extend(self, slot: int, tokens: np.ndarray) -> torch.Tensor:
         """Allocate/COW the pages the write range touches, then one
@@ -524,25 +549,43 @@ class RAGEngine:
         with self._timed("decode"):
             self._decode_active(token_vec, stepping)
 
-    def decode_tokens(self, token_vec: np.ndarray,
+    def decode_logits(self, token_vec: np.ndarray,
                       step_mask: np.ndarray) -> torch.Tensor:
-        """One paged decode step over every slot + greedy argmax: (B,)
-        int32 next tokens on the device.  Slots with ``step_mask`` False
-        write nothing and their tokens are ignored."""
-        logits, self.pool.cache = tr.paged_decode_step(
-            self.gen.params, self.pool.cache, self._tensor(token_vec),
-            self.pool.positions(), self._tensor(self.pool.block_tables()),
-            self.gen.cfg, attn_impl=self._paged_attn,
-            write_mask=self._tensor(step_mask))
-        return torch.argmax(logits[:, :self.gen.cfg.vocab_size],
-                            dim=-1).to(torch.int32)
+        """One decode step over every slot of the pool: (B, V) logits on
+        the device.  Slots with ``step_mask`` False write nothing and
+        their logits are to be ignored."""
+        if isinstance(self.pool, PagedKVCachePool):
+            logits, self.pool.cache = tr.paged_decode_step(
+                self.gen.params, self.pool.cache, self._tensor(token_vec),
+                self.pool.positions(),
+                self._tensor(self.pool.block_tables()), self.gen.cfg,
+                attn_impl=self._paged_attn,
+                write_mask=self._tensor(step_mask))
+        else:
+            logits, self.pool.cache = tr.decode_step(
+                self.gen.params, self.pool.cache, self._tensor(token_vec),
+                self.pool.positions(), self.gen.cfg,
+                attn_impl=self._dense_attn,
+                write_mask=self._tensor(step_mask))
+        return logits[:, :self.gen.cfg.vocab_size]
 
     def _decode_active(self, token_vec, stepping) -> None:
-        for slot in stepping:            # allocate/COW each write target
-            self.pool.prepare_append(slot, 1)
+        if isinstance(self.pool, PagedKVCachePool):
+            for slot in stepping:        # allocate/COW each write target
+                self.pool.prepare_append(slot, 1)
         step_mask = np.zeros(self.pool.n_slots, bool)
         step_mask[stepping] = True
-        new_tokens = self.decode_tokens(token_vec, step_mask).cpu().numpy()
+        logits = self.decode_logits(token_vec, step_mask)
+        if self.cfg.fused_decode:
+            # the step's one sync: (B,) tokens
+            new_tokens = torch.argmax(logits, dim=-1).cpu().numpy()
+        else:
+            # pre-fusion path (kept for parity tests): argmax on the host;
+            # JAX rebuilds the whole cache here, and the count says so
+            new_tokens = np.argmax(logits.float().cpu().numpy(), axis=-1)
+            self.metrics["cache_copy_bytes"] += sum(
+                v.numel() * v.element_size()
+                for v in self.pool.cache.values())
         self.metrics["host_syncs"] += 1
         self.metrics["decode_host_syncs"] += 1
         self.pool.advance(stepping)
@@ -591,7 +634,7 @@ class RAGEngine:
         if isinstance(self.backend, FallbackBackend):
             out["retrieval_fallbacks"] = self.backend.metrics["fallbacks"]
             out["retrieval_no_context"] = self.backend.metrics["no_context"]
-        out.update(dict(self.pool.metrics))
+        out.update(dict(getattr(self.pool, "metrics", {})))
         return out
 
     def abort_request(self, req: Request, reason: str,

@@ -1,17 +1,19 @@
-"""Paged KV cache pool for continuous batching (mirror of
+"""KV cache pools for continuous batching (mirror of
 ``repro.serving.kv_cache``).
 
-:class:`PagedKVCachePool` keeps fixed-size pages (L, n_pages, page, H_kv,
-D) as torch tensors on the engine's device, with a per-slot page table and
-a content-addressed prefix cache.  The host policy -- page tables,
-refcounts, chain keys, copy-on-extend, LRU eviction -- is numpy and the
-same line for line as the JAX pool, so both pools make the same decisions
-from the same calls.  Writes go into the pool in place.
+* :class:`KVCachePool` -- the dense layout, one ``s_max``-wide cache row
+  per slot: (L, n_slots, S_max, H_kv, D).
+* :class:`PagedKVCachePool` -- fixed-size pages (L, n_pages, page, H_kv,
+  D) with a per-slot page table and a content-addressed prefix cache.  The
+  host policy -- page tables, refcounts, chain keys, copy-on-extend, LRU
+  eviction -- is numpy and the same line for line as the JAX pool, so both
+  pools make the same decisions from the same calls.
 
-Handoff payloads carry host numpy arrays with the pool dtype's exact
-bytes; numpy has no bfloat16, so a bf16 pool's pages travel as int16
-views of the same bits, and ``payload_checksum`` CRCs the same bytes the
-JAX pool's bf16 arrays hold.  The dense slot pool is not ported yet.
+Both keep their cache as torch tensors on the engine's device and write
+into it in place.  Handoff payloads carry host numpy arrays with the pool
+dtype's exact bytes; numpy has no bfloat16, so a bf16 pool's rows travel
+as int16 views of the same bits, and ``payload_checksum`` CRCs the same
+bytes the JAX pool's bf16 arrays hold.
 """
 
 from __future__ import annotations
@@ -41,6 +43,8 @@ def to_host(t: torch.Tensor) -> np.ndarray:
 def from_host(a, dtype: torch.dtype, device) -> torch.Tensor:
     """Inverse of :func:`to_host`; also takes ml_dtypes bfloat16 arrays."""
     a = np.ascontiguousarray(np.asarray(a))
+    if not a.flags.writeable:            # torch wants memory it may write
+        a = a.copy()
     if a.dtype.name == "bfloat16":
         a = a.view(np.int16)
     t = torch.from_numpy(a)
@@ -77,6 +81,89 @@ class PagedPrefix:
         """Total payload size == what a dense whole-prefix export ships."""
         return int(sum(v.nbytes for p in self.pages.values()
                        for v in p.values()))
+
+
+class KVCachePool:
+    """Dense slot-per-request pool (the pre-paging layout, kept for parity
+    with the paged one and for the pre-fusion decode path)."""
+
+    def __init__(self, cfg: tr.TransformerConfig, n_slots: int, s_max: int,
+                 dtype=torch.bfloat16, device="cuda"):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.n_slots = n_slots
+        self.s_max = s_max
+        self.cache = tr.make_cache(cfg, n_slots, s_max, dtype,
+                                   device=self.device)
+        self.lengths = np.zeros(n_slots, np.int32)
+        self.free = list(range(n_slots))
+        self.owner: dict[int, int] = {}       # slot -> request id
+
+    def alloc(self, rid: int) -> int | None:
+        if not self.free:
+            return None
+        slot = self.free.pop()
+        self.owner[slot] = rid
+        self.lengths[slot] = 0
+        return slot
+
+    def release(self, slot: int) -> None:
+        self.owner.pop(slot, None)
+        self.lengths[slot] = 0
+        # zero the slot so stale keys can never leak across requests
+        for v in self.cache.values():
+            v[:, slot].zero_()
+        self.free.append(slot)
+
+    def write_prefix(self, slot: int, layer_cache: dict, prefix_len: int,
+                     tokens=None, key_salt: bytes = b"") -> None:
+        """Install a prefill-produced cache (L, 1, P, H, D) into the slot.
+
+        ``tokens``/``key_salt`` are accepted for protocol compatibility
+        with the paged pool and ignored (dense slots cannot share)."""
+        p = min(int(prefix_len), self.s_max)
+        for k, v in layer_cache.items():
+            self.cache[k][:, slot, :p] = v[:, 0, :p].to(self.cache[k].dtype)
+        self.lengths[slot] = p
+
+    def export_slot(self, slot: int) -> tuple[dict, int]:
+        """The slot's valid prefix as host arrays ``{"k","v"}: (L, length,
+        H_kv, D)`` in the pool dtype's exact bytes, and its length."""
+        length = int(self.lengths[slot])
+        prefix = {k: to_host(v[:, slot, :length])
+                  for k, v in self.cache.items()}
+        return prefix, length
+
+    def import_slot(self, slot: int, prefix: dict,
+                    length: int) -> ImportStats:
+        """Install an exported prefix into a (freshly alloc'd) slot,
+        bit-exactly.  Raises if it does not fit: truncating it would decode
+        from a corrupted context."""
+        p = int(length)
+        if p > self.s_max:
+            raise ValueError(
+                f"cannot import a {p}-token cache prefix into a pool with "
+                f"s_max={self.s_max}; prefill and decode pools must agree")
+        for k, v in self.cache.items():
+            v[:, slot, :p] = from_host(np.asarray(prefix[k])[:, :p], v.dtype,
+                                       self.device)
+        self.lengths[slot] = p
+        return ImportStats(self.handoff_bytes(prefix), 0, 0)
+
+    @staticmethod
+    def handoff_bytes(prefix: dict) -> int:
+        """Payload size of one exported prefix (handoff traffic accounting)."""
+        return int(sum(v.nbytes for v in prefix.values()))
+
+    def positions(self) -> torch.Tensor:
+        # a copy: on the CPU as_tensor would alias the lengths advance() bumps
+        return torch.tensor(self.lengths, device=self.device)
+
+    def advance(self, slots: list[int]) -> None:
+        for s in slots:
+            self.lengths[s] += 1
+            assert self.lengths[s] <= self.s_max, \
+                f"slot {s} advanced past s_max={self.s_max}"
 
 
 class PagedKVCachePool:

@@ -79,32 +79,46 @@ def _teacher_forced(stack, prompt, prefix):
             bridge.tensor_to_numpy(tl[0, -1, :VOCAB]))
 
 
+def _same_up_to_near_tie(stack, prompt, jout, tout, label):
+    """Greedy streams ``jout`` (JAX) and ``tout`` (port) after ``prompt``
+    are equal, or equal up to a bf16 near-tie flip (module docstring)."""
+    jout, tout = list(map(int, jout)), list(map(int, tout))
+    if tout == jout:
+        return
+    step = next(t for t, (a, b) in enumerate(zip(jout, tout)) if a != b)
+    jl, tl = _teacher_forced(stack, prompt, np.asarray(jout[:step]))
+    top2 = np.sort(jl)[-2:]
+    margin = float(top2[1] - top2[0])
+    msg = (f"{label} step {step}: JAX token {jout[step]}, port token "
+           f"{tout[step]}, JAX top-2 margin {margin}")
+    print(msg)
+    np.testing.assert_allclose(tl, jl, rtol=BF16_TOL, atol=BF16_TOL,
+                               err_msg=msg)
+    assert margin <= NEAR_TIE, "not a near-tie: " + msg
+    warnings.warn("bf16 near-tie flip: " + msg)
+
+
 def _compare_streams(stack, jreqs, treqs):
     for i, (jr, trq) in enumerate(zip(jreqs, treqs)):
         assert trq.state is State.DONE
         assert trq.retrieved_ids == jr.retrieved_ids, f"request {i}"
-        if trq.output == jr.output:
-            continue
-        step = next(t for t, (a, b) in enumerate(zip(jr.output,
-                                                     trq.output)) if a != b)
-        jl, tl = _teacher_forced(stack, jr.prompt, jr.output[:step])
-        top2 = np.sort(jl)[-2:]
-        margin = float(top2[1] - top2[0])
-        msg = (f"request {i} step {step}: JAX token {jr.output[step]}, "
-               f"port token {trq.output[step]}, JAX top-2 margin {margin}")
-        print(msg)
-        np.testing.assert_allclose(tl, jl, rtol=BF16_TOL, atol=BF16_TOL,
-                                   err_msg=msg)
-        assert margin <= NEAR_TIE, "not a near-tie: " + msg
-        assert trq.output[:step] == jr.output[:step], msg
-        warnings.warn("bf16 near-tie flip: " + msg)
+        _same_up_to_near_tie(stack, jr.prompt, jr.output, trq.output,
+                             f"request {i}")
 
 
-def _serve_both(stack, **kw):
+#: the stack's component that plays each optional stage's model
+STAGE_MODELS = {"rewriter": 0, "reranker": 1, "safety": 1}
+
+
+def _serve_both(stack, stages=(), **kw):
+    """Serve the stack's questions on the JAX ``"ref"`` engine and on the
+    port's engine with the same config; ``stages`` names the optional
+    stage models (``rewriter``, ``reranker``, ``safety``) to give both."""
     gen, enc, corpus, questions = stack
     base = {"decode_slots": 3, "s_max": 96, "max_new_tokens": 6, **kw}
+    jstages = {s: stack[STAGE_MODELS[s]] for s in stages}
     jeng = JRAGEngine(gen, enc, corpus, JEngineConfig(attn_impl="ref",
-                                                      **base))
+                                                      **base), **jstages)
     jreqs = [JRequest(question=q.copy()) for q in questions]
     jeng.serve(jreqs)
     backend = None
@@ -118,7 +132,8 @@ def _serve_both(stack, **kw):
             nprobe=base.get("nprobe", 8), device="cpu")
     teng = te.RAGEngine(_port(gen), _port(enc), corpus,
                         te.EngineConfig(**base), backend=backend,
-                        device="cpu")
+                        device="cpu",
+                        **{s: _port(c) for s, c in jstages.items()})
     treqs = [Request(question=q.copy()) for q in questions]
     teng.serve(treqs)
     np.testing.assert_allclose(teng.db_vectors.numpy(), jeng.db_vectors,

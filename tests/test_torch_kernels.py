@@ -1,4 +1,4 @@
-"""The port's two kernels: their plain PyTorch versions against the JAX
+"""The port's three kernels: their plain PyTorch versions against the JAX
 package on the CPU, and (on a GPU only) the CUDA kernels against those
 plain versions.
 
@@ -8,6 +8,14 @@ plain versions.
   ``tests/test_paged_attention.py``.  float32 agrees to ``1e-5``; bf16 to
   one bf16 step of an output of order one (``2e-2``, the JAX tests' own
   kernel-vs-oracle bound), since both round an f32 result once.
+* Dense decode attention: the plain version (``decode_attention_ref``)
+  against the JAX Pallas kernel in interpret mode (through its wrapper,
+  which pads S to a tile multiple) and against the JAX oracle on
+  repeated KV heads, float32 to ``2e-3`` as ``tests/test_kernels.py``
+  holds the kernel to its oracle.  Lengths run from 1 to S: a length past
+  S clamps in the port and in the oracle but reads the wrapper's zero pad
+  in the Pallas kernel, and at length 0 the two JAX versions disagree
+  with each other (the port writes zeros there, as the CUDA kernel does).
 * PQ scan: the plain version sums the sub-quantizers in order, as the
   Pallas kernel's loop does, so it is bit-equal to the kernel in interpret
   mode; ``ivf_pq.pq_scan_ref`` reduces in XLA's order (``1e-5``).
@@ -27,14 +35,21 @@ from repro.kernels.paged_attention.paged_attention import (
 from repro.kernels.paged_attention.ref import (
     engine_ref_attn as jax_engine_ref_attn,
     paged_decode_attention_dense_ref as jax_dense_ref)
+from repro.kernels.decode_attention.ops import (
+    decode_attention as jax_decode_attention)
+from repro.kernels.decode_attention.ref import (
+    decode_attention_ref as jax_decode_ref)
 from repro.kernels.pq_scan.ops import pq_scan as jax_pq_scan
 from repro.retrieval.ivf_pq import pq_scan_ref as jax_ivf_pq_scan_ref
 from repro_torch import bridge
+from repro_torch.kernels.decode_attention import ops as da
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.paged_attention import ops as pa
 from repro_torch.kernels.paged_attention.ref import (
     engine_ref_attn, paged_decode_attention_dense_ref, paged_gather)
 from repro_torch.kernels.pq_scan import ops as pq
 from repro_torch.kernels.pq_scan.ref import pq_scan_ref
+from repro_torch.models import common as cm
 
 # parallel test workers share the CPU: one torch thread each keeps this
 # file from slowing the wall-clock-gated tests that run beside it
@@ -149,6 +164,71 @@ def test_paged_wrapper_grouping_and_rank():
     np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=0, atol=1e-5)
 
 
+DENSE_CASES = {
+    # name: (b, h_kv, g, d, s, lengths)
+    "mha": (3, 4, 1, 16, 37, [1, 20, 37]),
+    "gqa2": (4, 2, 2, 32, 600, [1, 513, 599, 600]),
+    "gqa4": (2, 2, 4, 64, 130, [128, 129]),
+    "one_position": (2, 1, 4, 16, 1, [1, 1]),
+}
+
+
+def _dense_problem(b, h_kv, g, d, s, lengths, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, h_kv, g, d)).astype(np.float32),
+            rng.standard_normal((b, s, h_kv, d)).astype(np.float32),
+            rng.standard_normal((b, s, h_kv, d)).astype(np.float32),
+            np.asarray(lengths, np.int32))
+
+
+@pytest.mark.parametrize("case", sorted(DENSE_CASES))
+def test_dense_plain_version_matches_jax(case):
+    b, h_kv, g, d, s, lengths = DENSE_CASES[case]
+    q, k, v, ln = _dense_problem(b, h_kv, g, d, s, lengths)
+    got = decode_attention_ref(*map(torch.tensor, (q, k, v, ln)))
+    assert got.dtype == torch.float32 and got.shape == (b, h_kv, g, d)
+    flat = q.reshape(b, h_kv * g, d)
+    kernel = jax_decode_attention(jnp.asarray(flat), jnp.asarray(k),
+                                  jnp.asarray(v), jnp.asarray(ln))
+    oracle = jax_decode_ref(jnp.asarray(flat),
+                            jnp.asarray(np.repeat(k, g, axis=2)),
+                            jnp.asarray(np.repeat(v, g, axis=2)),
+                            jnp.asarray(ln))
+    for want in (kernel, oracle):
+        np.testing.assert_allclose(got.numpy().reshape(b, h_kv * g, d),
+                                   np.asarray(want), rtol=0, atol=2e-3)
+
+
+def test_dense_plain_version_edges():
+    """cache_len past S clamps to S (as the JAX oracle does); cache_len 0
+    gives exact zeros; bf16 rounds the f32 result once; the wrapper takes
+    the engine's (B, 1, H, D) rank and groups heads as repeat_kv does."""
+    q, k, v, _ = _dense_problem(3, 2, 2, 16, 24, [0, 0, 0])
+    ln = np.asarray([0, 24 + 5, 7], np.int32)
+    tq, tk, tv, tl = map(torch.tensor, (q, k, v, ln))
+    got = decode_attention_ref(tq, tk, tv, tl)
+    assert not got[0].any()
+    oracle = jax_decode_ref(jnp.asarray(q.reshape(3, 4, 16)),
+                            jnp.asarray(np.repeat(k, 2, axis=2)),
+                            jnp.asarray(np.repeat(v, 2, axis=2)),
+                            jnp.asarray(ln))
+    np.testing.assert_allclose(got.numpy().reshape(3, 4, 16)[1:],
+                               np.asarray(oracle)[1:], rtol=0, atol=1e-5)
+    half = decode_attention_ref(*(t.to(torch.bfloat16) for t in (tq, tk, tv)),
+                                tl)
+    assert half.dtype == torch.bfloat16
+    np.testing.assert_allclose(half.float().numpy(), got.numpy(), rtol=0,
+                               atol=TOL["bf16"])
+    flat = tq.reshape(3, 1, 4, 16)
+    out = da.decode_attention(flat, tk, tv, tl)
+    assert out.shape == flat.shape and torch.equal(out[:, 0],
+                                                   got.reshape(3, 4, 16))
+    ref = cm.decode_attention_ref(flat, cm.repeat_kv(tk, 2),
+                                  cm.repeat_kv(tv, 2), tl)
+    np.testing.assert_allclose(out[1:].numpy(), ref[1:].numpy(), rtol=0,
+                               atol=1e-5)
+
+
 PQ_SHAPES = [(1, 16, 4), (3, 100, 8), (2, 513, 16), (1, 2048, 8)]
 
 
@@ -209,6 +289,15 @@ def test_cpu_tensors_never_launch():
         pq.pq_scan_cuda(torch.tensor(lut), torch.tensor(codes))
 
 
+def test_dense_cpu_tensors_never_launch():
+    da.decode_attention.launches = 0
+    q, k, v, ln = map(torch.tensor, _dense_problem(2, 2, 2, 16, 9, [3, 9]))
+    da.decode_attention(q.reshape(2, 1, 4, 16), k, v, ln)
+    assert da.decode_attention.launches == 0
+    with pytest.raises(ValueError, match="CUDA"):
+        da.decode_attention_cuda(q, k, v, ln)
+
+
 # ---------------------------------------------------------------------------
 # On a GPU: the CUDA kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -245,6 +334,46 @@ def test_paged_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="head dim"):
         pa.paged_decode_attention_cuda(
             *(x[..., :8].contiguous() for x in (q, k, v)), t, ln)
+
+
+DENSE_CUDA_CASES = {**DENSE_CASES,
+                    "ragged_lengths": (8, 2, 4, 128, 300,
+                                       [0, 1, 127, 128, 129, 299, 300, 301])}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["bf16", "f32"])
+@pytest.mark.parametrize("case", sorted(DENSE_CUDA_CASES))
+def test_dense_kernel_matches_plain_version(cuda, case, dt):
+    b, h_kv, g, d, s, lengths = DENSE_CUDA_CASES[case]
+    q, k, v, ln = _dense_problem(b, h_kv, g, d, s, lengths)
+    args = [torch.tensor(x, device=cuda).to(TDT[dt]) for x in (q, k, v)]
+    args.append(torch.tensor(ln, device=cuda))
+    before = da.decode_attention.launches
+    got = da.decode_attention_cuda(*args)
+    want = decode_attention_ref(*args)
+    torch.cuda.synchronize()
+    assert da.decode_attention.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=TOL[dt])
+    assert not got[args[3] == 0].any()
+
+
+@pytest.mark.cuda
+def test_dense_kernel_refuses_what_it_does_not_take(cuda):
+    q, k, v, ln = (torch.tensor(x, device=cuda) for x in
+                   _dense_problem(2, 2, 2, 16, 9, [3, 9]))
+    with pytest.raises(TypeError):
+        da.decode_attention_cuda(q.half(), k.half(), v.half(), ln)
+    with pytest.raises(TypeError):
+        da.decode_attention_cuda(q, k, v, ln.long())
+    with pytest.raises(ValueError):
+        da.decode_attention_cuda(q, k[:1], v[:1], ln)
+    with pytest.raises(ValueError):
+        da.decode_attention_cuda(q, k.transpose(1, 2), v.transpose(1, 2), ln)
+    with pytest.raises(ValueError, match="head dim"):
+        da.decode_attention_cuda(*(x[..., :8].contiguous() for x in (q, k, v)),
+                                 ln)
 
 
 @pytest.mark.cuda

@@ -1,8 +1,9 @@
 """The port's engine and server on the CPU, without the JAX package: the
 open-loop front-end (submission, streaming, deadlines, step budgets,
 replay, summary), the engine's health and drain API, and the parts of
-the engine that are not ported yet, which must raise instead of being
-skipped.
+the engine that raised until they were ported (the dense slot pool, the
+unfused decode, the rewrite / multi-query / rerank / safety stages),
+which now each serve a request.
 """
 
 import time
@@ -17,6 +18,7 @@ from repro_torch.serving.engine import (Component, EngineConfig, RAGEngine,
                                         bucket_len)
 from repro_torch.serving.faults import (LEGAL_HEALTH_TRANSITIONS,
                                         EngineCrash, EngineHealth)
+from repro_torch.serving.kv_cache import KVCachePool
 from repro_torch.serving.request import Request, State
 from repro_torch.serving.server import (RAGServer, RequestStalledError,
                                         percentiles, poisson_offsets)
@@ -160,23 +162,52 @@ def test_abort_and_snapshot_are_detached(parts):
     assert snap["attn_impl"] == "ref" and snap["health"] == "healthy"
 
 
+def _serve_one(eng) -> Request:
+    req = Request(question=np.asarray([1, 2, 3, 4], np.int32))
+    eng.serve([req])
+    assert req.state is State.DONE and len(req.output) == 5
+    assert all(0 <= t < VOCAB for t in req.output)
+    return req
+
+
 @pytest.mark.parametrize("kw,missing", [
     ({"paged": False}, "dense slot pool"),
     ({"fused_decode": False}, "dense slot pool"),
     ({"fanout_queries": 2}, "multi_query"),
 ])
 def test_unported_parts_raise(parts, kw, missing):
-    with pytest.raises(NotImplementedError, match=missing):
-        _engine(parts, **kw)
+    """Each part that raised before it was ported now builds an engine
+    that serves a request."""
+    eng = _engine(parts, **kw)
+    if missing == "dense slot pool":
+        assert isinstance(eng.pool, KVCachePool)
+    else:
+        assert eng.has_executor(missing)
+    req = _serve_one(eng)
+    if "fused_decode" in kw:
+        assert eng.metrics["cache_copy_bytes"] > 0
+    if missing == "multi_query":
+        assert len(req.query_variants) == 2
 
 
 @pytest.mark.parametrize("stage", ["rewriter", "reranker", "safety"])
 def test_unported_stage_components_raise(parts, stage):
+    """Each stage model that made the engine raise before its executor
+    was ported now adds that executor, and the engine serves a request."""
     gen, enc, corpus, _ = parts
     cfg = EngineConfig(decode_slots=2, s_max=64, max_new_tokens=5,
                        rewrite_tokens=2, rerank=True)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        RAGEngine(gen, enc, corpus, cfg, device="cpu", **{stage: enc})
+    eng = RAGEngine(gen, enc, corpus, cfg, device="cpu",
+                    **{stage: gen if stage == "rewriter" else enc})
+    name = {"rewriter": "rewrite", "reranker": "rerank",
+            "safety": "safety_filter"}[stage]
+    assert [e.name for e in eng.executors] == [
+        n for n in ("rewrite", "retrieval", "rerank", "safety_filter")
+        if n in (name, "retrieval")]
+    req = _serve_one(eng)
+    assert eng.metrics["stage_time_s"][name] > 0
+    if stage == "rewriter":
+        assert len(req.rewritten) == 4 + 2
 
 
 def test_engine_refuses_a_missing_gpu(parts):
