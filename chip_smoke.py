@@ -1,26 +1,35 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-Drives the port's two serving paths -- ``RAGServer`` over ``RAGEngine``
+Drives the port's three serving paths -- ``RAGServer`` over ``RAGEngine``
 with IBM Granite-3.0-2B at full width (random weights from a seed), an
 encoder of ENCODER_120M's widths with Granite's vocabulary, and IVF-PQ
 retrieval -- and holds every CUDA kernel of those paths against its plain
-PyTorch version.  The paged path decodes through the paged-decode kernel;
-the dense path decodes through the dense decode kernel, behind every
-pre-prefill stage of ``full_pipeline`` (rewrite, multi-query fan-out,
-rerank, safety filter).  Phases, each printed as one JSON line, in order:
+PyTorch version.  Full-sequence attention (prefill, the encoder, greedy
+generation's prompt pass) runs the flash attention kernel on every path.
+The paged path decodes through the paged-decode kernel; the dense path
+decodes through the dense decode kernel, behind every pre-prefill stage
+of ``full_pipeline`` (rewrite, multi-query fan-out, rerank, safety
+filter); the plan path is RAGO's own workflow -- ``ServingPlan.optimize``
+on the ``iterative`` schema with Granite as its generator, then
+``RAGServer.from_plan`` and ``replay_trace`` -- with iterative retrieval
+during decode.  Phases, each printed as one JSON line, in order:
 
   device       card name, ``nvidia-smi`` name and power limit, TF32 flags
   build        nvcc build of ``src/repro_torch/csrc/*.cu`` (seconds)
-  setup        model weights, corpus encode, IVF-PQ index, both engines
+  setup        model weights, corpus encode, IVF-PQ index, two engines
   kernels      each kernel vs its plain version at its path's shapes
   serve        16 Poisson-arriving questions through the paged engine;
                every kernel's launch count over this phase alone
   serve_dense  8 Poisson-arriving questions through the dense engine and
                its five stage executors; launch counts over this phase
-  check        teacher-forced decode step on each pool, kernel vs plain
-               attention, and IVF-PQ search with and without the scan
-               kernel
+  serve_plan   the plan for ``iterative`` on 1 x 4 H100s, deployed on
+               this card (a fresh engine: corpus encode, index, paged
+               pool of 128 slots), 8 questions replayed from a JSONL
+               trace, 256 tokens each; launch counts over this phase
+  check        teacher-forced decode step on each pool and teacher-forced
+               prefill, kernel vs plain attention, and IVF-PQ search with
+               and without the scan kernel
 
 then the ``{"kernels": [...]}`` line, the raw ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``.  Any failed check raises
@@ -53,6 +62,8 @@ QPS = 8.0                 # Poisson arrival rate of the serve phase
 N_QUESTIONS = 16
 DENSE_QPS = 4.0           # ... and of the serve_dense phase
 N_DENSE_QUESTIONS = 8
+PLAN_QPS = 4.0            # ... and of the serve_plan trace
+N_PLAN_QUESTIONS = 8
 NEW_TOKENS = 32
 TIMING_REPS = 50
 # the stage executors of repro/configs/rag_pipelines.py::full_pipeline
@@ -322,6 +333,68 @@ def check_decode_attention() -> dict:
     return out
 
 
+def check_flash_attention() -> dict:
+    """Kernel vs plain version at the two shapes its path runs: the
+    generator's prefill (B=1, S=1,024, H=32, H_kv=8, D=64, bf16, causal)
+    and the encoder's batch (B=32, S=256, H=12, D=64, f32, full).  One
+    ``scaled_dot_product_attention`` call on the same inputs is timed as a
+    yardstick (``library_ms``); the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    shapes = {"prefill": (1, 1024, 32, 8, 64, torch.bfloat16, True, 2e-2),
+              "encoder": (32, 256, 12, 12, 64, torch.float32, False, 1e-5)}
+    rng = np.random.default_rng(3)
+    out = {"tol_reason": "kernel and plain version both keep f32 softmax "
+                         "statistics and round the f32 result once; they "
+                         "sum in other orders, so bf16 outputs of order "
+                         "one differ by at most about one bf16 step"}
+    for name, (b, s, h, h_kv, d, dtype, causal, tol) in shapes.items():
+        q = torch.tensor(rng.standard_normal((b, s, h, d)), dtype=dtype,
+                         device="cuda")
+        k, v = (torch.tensor(rng.standard_normal((b, s, h_kv, d)),
+                             dtype=dtype, device="cuda") for _ in range(2))
+        got = fa.flash_attention_cuda(q, k, v, causal)
+        want = flash_attention_ref(q, k, v, causal)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        if not err <= tol:
+            raise AssertionError(f"flash attention {name}: max abs err "
+                                 f"{err} > {tol}")
+        ms = device_ms(lambda: fa.flash_attention_cuda(q, k, v, causal))
+        plain_ms = device_ms(lambda: flash_attention_ref(q, k, v, causal))
+        # the library call on (B, H, S, D) views of the same tensors
+        qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
+
+        def library():
+            return F.scaled_dot_product_attention(qs, ks, vs,
+                                                  is_causal=causal,
+                                                  enable_gqa=True)
+        lib_err = float((library().transpose(1, 2).float()
+                         - want.float()).abs().max())
+        library_ms = device_ms(library)
+        # bytes: q, k, v read once, the output written once; operations:
+        # 4*D (QK^T and PV) per visible query-key pair and query head
+        size = torch.finfo(dtype).bits // 8
+        n_bytes = (2 * q.numel() + 2 * k.numel()) * size
+        pairs = s * (s + 1) // 2 if causal else s * s
+        bound_ms, bound_by = bound(n_bytes, 4 * d * pairs * b * h,
+                                   str(dtype).removeprefix("torch."))
+        out[name] = {"shape": [b, s, h, h_kv, d], "dtype": str(dtype),
+                     "causal": causal, "max_abs_err": err, "tol": tol,
+                     "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                     "library_max_abs_err": lib_err, "bound_ms": bound_ms,
+                     "bound_by": bound_by}
+    # the kernels line reports the generator's prefill shape
+    out.update({key: out["prefill"][key] for key in
+                ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+               max_abs_err=max(out["prefill"]["max_abs_err"],
+                               out["encoder"]["max_abs_err"]))
+    return out
+
+
 def check_pq_scan(rows: int, list_len: int, n_subq: int) -> dict:
     """Kernel vs plain version, bit-equal in f32, at the scan shape one
     search of the serve phase gives: (Q*nprobe, list_len, S)."""
@@ -364,9 +437,11 @@ def phase_kernels(engine) -> dict:
           **pq})
     dense = check_decode_attention()
     emit({"phase": "kernels", "kernel": "decode_attention", **dense})
+    flash = check_flash_attention()
+    emit({"phase": "kernels", "kernel": "flash_attention", **flash})
     torch.cuda.synchronize()
     return {"paged_decode_attention": pa, "pq_scan": pq,
-            "decode_attention": dense}
+            "decode_attention": dense, "flash_attention": flash}
 
 
 def phase_serve(engine, questions) -> dict:
@@ -409,34 +484,50 @@ def phase_serve(engine, questions) -> dict:
     if launches["pq_scan"] < searches or searches < len(questions):
         raise AssertionError(f"pq_scan launched {launches['pq_scan']} "
                              f"times for {searches} searches")
+    check_flash_launches(engine, launches, snap["prefills"], searches)
     return result
 
 
-def reset_launches() -> None:
+def check_flash_launches(engine, launches, prefills, searches) -> None:
+    """Every prefill forward and every query embed ran the flash kernel:
+    one launch per layer each, at least."""
+    least = (engine.gen.cfg.n_layers * prefills
+             + engine.enc.cfg.n_layers * searches)
+    if launches["flash_attention"] < least:
+        raise AssertionError(f"flash attention launched "
+                             f"{launches['flash_attention']} times, fewer "
+                             f"than the {least} layers of {prefills} "
+                             f"prefills and {searches} query embeds")
+
+
+def _launch_counters() -> dict:
     from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.paged_attention import ops as pa
     from repro_torch.kernels.pq_scan import ops as pq
-    for fn in (pa.paged_decode_attention, pq.pq_scan, da.decode_attention):
+    return {"paged_decode_attention": pa.paged_decode_attention,
+            "pq_scan": pq.pq_scan, "decode_attention": da.decode_attention,
+            "flash_attention": fa.flash_attention}
+
+
+def reset_launches() -> None:
+    for fn in _launch_counters().values():
         fn.launches = 0
 
 
 def read_launches() -> dict:
-    from repro_torch.kernels.decode_attention import ops as da
-    from repro_torch.kernels.paged_attention import ops as pa
-    from repro_torch.kernels.pq_scan import ops as pq
-    return {"paged_decode_attention": pa.paged_decode_attention.launches,
-            "pq_scan": pq.pq_scan.launches,
-            "decode_attention": da.decode_attention.launches}
+    return {name: fn.launches for name, fn in _launch_counters().items()}
 
 
-def check_served(engine, handles, questions, snap) -> None:
-    """Every request DONE with NEW_TOKENS in-vocabulary tokens and
-    in-corpus documents, through the CUDA attention kernel."""
+def check_served(engine, handles, questions, snap,
+                 n_tokens: int = NEW_TOKENS) -> None:
+    """Every request DONE with ``n_tokens`` in-vocabulary tokens and
+    in-corpus documents, through the CUDA attention kernels."""
     from repro_torch.serving.request import State
     vocab = engine.gen.cfg.vocab_size
     for h in handles:
         r = h.request
-        if r.state is not State.DONE or len(r.output) != NEW_TOKENS:
+        if r.state is not State.DONE or len(r.output) != n_tokens:
             raise AssertionError(f"request {r.rid}: {r.state} with "
                                  f"{len(r.output)} tokens")
         if not all(0 <= t < vocab for t in r.output):
@@ -496,23 +587,131 @@ def phase_serve_dense(dense, questions) -> dict:
         if (len(r.rewritten) != len(r.question) + 32
                 or len(r.query_variants) != 2 or not r.safety_scores):
             raise AssertionError(f"request {r.rid}: a stage did not run")
+    # the engine's decode steps and the greedy steps of rewrite and fan-out
+    # (n - 1 decode steps after the prompt pass for n generated tokens)
+    cfg = dense.cfg
+    greedy = len(questions) * (cfg.rewrite_tokens - 1 + cfg.fanout_tokens - 1)
     n_layers = dense.gen.cfg.n_layers
-    if launches["decode_attention"] != n_layers * steps:
+    if launches["decode_attention"] != n_layers * (steps + greedy):
         raise AssertionError(f"dense attention launched "
                              f"{launches['decode_attention']} times, "
-                             f"expected {n_layers} x {steps}")
+                             f"expected {n_layers} x ({steps} + {greedy})")
     if launches["paged_decode_attention"] != 0:
         raise AssertionError("the paged kernel ran on the dense path")
     if launches["pq_scan"] < searches or searches < 2 * len(questions):
         raise AssertionError(f"pq_scan launched {launches['pq_scan']} "
                              f"times for {searches} searches")
+    check_flash_launches(dense, launches, snap["prefills"], searches)
+    return result
+
+
+def granite_iterative_schema():
+    """The ``iterative`` preset (``repro/configs/rag_pipelines.py``) with
+    Granite-3.0-2B's shape in place of its 8B generator."""
+    import dataclasses
+    from repro_torch.configs import granite_3_2b
+    from repro_torch.configs.rag_pipelines import iterative
+    from repro_torch.core.ragschema import ModelShape
+    c = granite_3_2b.CONFIG
+    shape = ModelShape("granite-3.0-2b", c.n_layers, c.d_model, c.n_heads,
+                       c.n_kv_heads, c.d_ff, c.vocab_size)
+    return dataclasses.replace(iterative(), generative=shape)
+
+
+#: what the JAX package's optimizer plans for that schema on 1 x 4 H100s
+#: (``tests/test_torch_plan.py`` holds the port's planner to it)
+EXPECTED_PLAN = {"decode_slots": 128, "retrieval_batch": 1, "s_max": 768,
+                 "max_new_tokens": 256, "iterative_interval": 64,
+                 "retrieval_backend": "ivfpq"}
+
+
+def phase_serve_plan(engine, questions) -> dict:
+    """RAGO's workflow on the card: plan ``iterative`` (Granite as its
+    generator) for 1 server of 4 H100s, deploy the plan's schedule
+    collocated on this one card with ``RAGServer.from_plan`` -- a fresh
+    engine that embeds the corpus through the encoder and builds its own
+    IVF-PQ index -- and replay 8 questions from a JSONL trace.  The plan's
+    128 decode slots, s_max 768 and 256 new tokens stand unclamped."""
+    import dataclasses
+    import torch
+    from repro_torch.core.hardware import H100_SXM, SystemConfig
+    from repro_torch.core.serving_plan import ServingPlan
+    from repro_torch.serving.server import RAGServer, poisson_offsets
+    from repro_torch.serving.trace import TraceEntry, save_trace
+
+    questions = questions[:N_PLAN_QUESTIONS]
+    system = SystemConfig(n_servers=1, xpus_per_server=4, xpu=H100_SXM)
+    plan = ServingPlan.optimize(granite_iterative_schema(), system)
+    fields = dataclasses.asdict(plan.engine_config())
+    emit({"phase": "serve_plan", "plan": plan.describe(),
+          "engine_config": fields})
+    wrong = {k: fields[k] for k, v in EXPECTED_PLAN.items() if fields[k] != v}
+    if wrong or plan.iter_batch != 1:
+        raise AssertionError(f"plan differs from the reference's: {wrong}, "
+                             f"iter_batch {plan.iter_batch}")
+    trace = ROOT / "build" / "serve_plan_trace.jsonl"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    save_trace(trace, [TraceEntry(arrival_s=float(t), question=q)
+                       for t, q in zip(poisson_offsets(
+                           PLAN_QPS, len(questions), seed=2), questions)])
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    server = RAGServer.from_plan(plan, engine.gen, engine.enc, engine.corpus,
+                                 topology="single", device=engine.device)
+    torch.cuda.synchronize()
+    t_deploy = time.perf_counter() - t0
+    plan_engine = server.engine
+    t0 = time.perf_counter()
+    handles = server.replay_trace(trace)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    snap = plan_engine.metrics_snapshot()
+    summary = server.summary()
+    steps = snap["decode_host_syncs"]
+    searches = snap["histograms"]["stage_seconds:retrieve"]["count"]
+    iterative = [h.request.retrievals_done for h in handles]
+    result = {
+        "phase": "serve_plan", "deploy_s": t_deploy, "wall_s": wall,
+        "n_done": summary["n_done"], "n_submitted": len(handles),
+        "qps": summary["qps"], "ttft_s": summary["ttft_s"],
+        "ttft_p99_s": summary["ttft_p99_s"], "tpot_s": summary["tpot_s"],
+        "tpot_p99_s": summary["tpot_p99_s"],
+        "stage_time_s": snap["stage_time_s"], "decode_steps": steps,
+        "searches": searches, "retrieval_batches": snap["retrieval_batches"],
+        "iterative_retrievals": iterative, "prefills": snap["prefills"],
+        "kv_pages": plan_engine.pool.n_pages,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "attn_impl": snap["attn_impl"], "launches": launches,
+        "first_output": handles[0].output[:8]}
+    emit(result)
+    check_served(plan_engine, handles, questions, snap,
+                 n_tokens=EXPECTED_PLAN["max_new_tokens"])
+    if min(iterative) < 1:
+        raise AssertionError(f"iterative retrievals per request: {iterative}")
+    n_layers = plan_engine.gen.cfg.n_layers
+    if launches["paged_decode_attention"] != n_layers * steps:
+        raise AssertionError(f"paged attention launched "
+                             f"{launches['paged_decode_attention']} times, "
+                             f"expected {n_layers} x {steps}")
+    if launches["decode_attention"] != 0:
+        raise AssertionError("the dense kernel ran on the paged path")
+    if launches["pq_scan"] < searches:
+        raise AssertionError(f"pq_scan launched {launches['pq_scan']} "
+                             f"times for {searches} searches")
+    # the corpus encode of the fresh engine, then the prefills and embeds
+    n_docs = len(plan_engine.corpus)
+    corpus_batches = -(-n_docs // 32)
+    check_flash_launches(plan_engine, launches, snap["prefills"],
+                         searches + corpus_batches)
     return result
 
 
 def compare_logits(name: str, plain, kern) -> dict:
-    """Teacher-forced logits of one decode step, plain attention vs the
-    kernel: allclose, and the same argmax wherever the plain top-2 margin
-    is wide.  Raises after printing the numbers when either fails."""
+    """Teacher-forced next-token logits, plain attention vs the kernel:
+    allclose, and the same argmax wherever the plain top-2 margin is wide.
+    Raises after printing the numbers when either fails."""
     import torch
     if not (torch.isfinite(plain).all() and torch.isfinite(kern).all()):
         raise AssertionError(f"{name}: non-finite logits")
@@ -543,10 +742,12 @@ def compare_logits(name: str, plain, kern) -> dict:
 
 def phase_check(engine, dense, questions) -> dict:
     """One teacher-forced decode step of the full-width model on each pool,
-    every slot filled, plain attention vs the kernel; and IVF-PQ search
-    with the scan kernel vs the plain scan."""
+    every slot filled, and one teacher-forced prefill of 8 prompts, plain
+    attention vs the kernel; and IVF-PQ search with the scan kernel vs the
+    plain scan."""
     import torch
     from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.paged_attention.ops import paged_decode_attention
     from repro_torch.models import transformer as tr
     from repro_torch.retrieval.ivf_pq import search
@@ -614,6 +815,21 @@ def phase_check(engine, dense, questions) -> dict:
                                      logits["kernel"])
     result["dense"]["prompt_lengths"] = [int(dense.pool.lengths[s])
                                          for s in slots]
+
+    # prefill: the same 8 prompts (two retrieved documents + the question,
+    # cut to 512 tokens) in one teacher-forced full-width forward, through
+    # the flash kernel and through the "ref" attention; the logits of each
+    # prompt's last position are its first token's
+    prompts = np.stack([dense.active[s].prompt[-512:] for s in slots])
+    logits = {}
+    for name, attn in (("plain", None), ("kernel", flash_attention)):
+        lg, _ = tr.forward(dense.gen.params, torch.tensor(prompts, device=dev),
+                           dense.gen.cfg, attn_impl=attn)
+        logits[name] = lg[:, -1, :vocab].float()
+    torch.cuda.synchronize()
+    result["prefill"] = compare_logits("prefill", logits["plain"],
+                                       logits["kernel"])
+    result["prefill"]["prompt_shape"] = list(prompts.shape)
 
     # retrieval: the scan kernel and the plain scan give the same search
     backend = engine.backend.chain[0]
@@ -701,6 +917,7 @@ def main() -> int:
     checks = phase_kernels(engine)
     served = phase_serve(engine, questions)
     served_dense = phase_serve_dense(dense, questions)
+    served_plan = phase_serve_plan(engine, questions)
     phase_check(engine, dense, questions)
     if profile_decode:
         phase_profile(engine, questions)
@@ -714,12 +931,18 @@ def main() -> int:
         "decode_attention": (
             "src/repro_torch/csrc/decode_attention.cu",
             "src/repro/kernels/decode_attention/decode_attention.py:70"),
+        "flash_attention": (
+            "src/repro_torch/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/flash_attention.py:61"),
     }
     # each kernel's launches on the path it serves: the paged serve phase
-    # for paged attention and the PQ scan, serve_dense for dense attention
+    # for paged attention and the PQ scan, serve_dense for dense attention,
+    # serve_plan for flash attention
     launches = {**served["launches"],
                 "decode_attention":
-                served_dense["launches"]["decode_attention"]}
+                served_dense["launches"]["decode_attention"],
+                "flash_attention":
+                served_plan["launches"]["flash_attention"]}
     kernels = []
     for name, (source, replaces) in sources.items():
         c = checks[name]

@@ -20,14 +20,16 @@ from repro_torch.models.transformer import (MoEConfig, TransformerConfig,
 from repro_torch.retrieval.ivf_pq import IVFPQIndex
 
 
-def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
-    """Exact tensor copy of a numpy array, bfloat16 included."""
+def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
+    """Exact tensor copy of a numpy array, bfloat16 included, on
+    ``device`` (the GPU unless the caller asks for the CPU)."""
+    dev = resolve_device(device)
     a = np.array(a, order="C")        # a writable copy torch may own
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(a)
-    return t.to(device)
+    return t.to(dev)
 
 
 def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:

@@ -13,6 +13,14 @@ Serving subset: ``forward`` (full sequence, optional KV collection),
 JAX returns a new cache from the decode and extend entry points; the port
 writes into the cache IN PLACE and returns the same dict, so a step costs
 no copy of the cache.
+
+Attention ops: ``forward``, ``encode`` and ``greedy_generate`` take the
+full-sequence op ``attn_impl(q, k, v, causal)`` (the flash kernel's
+contract, unrepeated KV heads); the decode steps take their decode op.
+``None`` keeps the reference paths, which mirror JAX's einsums step for
+step.  ``chunk_extend`` and ``paged_chunk_extend`` attend a chunk to a
+cache at an offset, which is not the flash kernel's function: they keep
+their plain attention.
 """
 
 from __future__ import annotations
@@ -225,13 +233,25 @@ def _qkv(x, lp, cfg, positions, compute_dtype):
     return q, k, v
 
 
-def _attn_full_seq(x, lp, cfg, positions, compute_dtype):
-    """Self-attention over a full sequence.  Returns (out, k, v)."""
+def _attn_full_seq(x, lp, cfg, positions, compute_dtype, attn_impl=None):
+    """Self-attention over a full sequence.  Returns (out, k, v).
+
+    ``attn_impl(q, k, v, causal) -> (B, S, H, D)`` gets the unrepeated KV
+    heads; ``None`` runs the reference paths below."""
     B, S, _ = x.shape
     q, k, v = _qkv(x, lp, cfg, positions, compute_dtype)
+    window = cfg.window if cfg.attention == "sliding_window" else None
+    if attn_impl is not None:
+        if window is not None:
+            raise NotImplementedError(
+                "the flash attention kernel has no sliding window; use "
+                "attn_impl='ref' for a sliding_window config")
+        out = attn_impl(q, k, v, cfg.causal)
+        wo = cm.maybe_dequant(lp["wo"], compute_dtype)
+        out = out.reshape(B, S, cfg.n_heads * cfg.d_head) @ wo
+        return out.to(x.dtype), k, v
     kr = cm.repeat_kv(k, cfg.q_per_kv)
     vr = cm.repeat_kv(v, cfg.q_per_kv)
-    window = cfg.window if cfg.attention == "sliding_window" else None
     if not cfg.causal:
         scale = 1.0 / math.sqrt(cfg.d_head)
         scores = torch.einsum("bqhd,bkhd->bhqk", q, kr).float() * scale
@@ -257,12 +277,14 @@ def _head(params, x, compute_dtype):
 
 def forward(params: TransformerParams, tokens: torch.Tensor,
             cfg: TransformerConfig, compute_dtype=torch.bfloat16,
-            collect_cache: bool = False, return_hidden: bool = False):
+            collect_cache: bool = False, return_hidden: bool = False,
+            attn_impl=None):
     """Full-sequence forward.  tokens: (B, S) int.
 
     Returns (logits, aux_loss), or (logits, aux_loss, cache) with
     ``collect_cache`` -- cache {"k","v"}: (L, B, S, H_kv, D) -- or the
-    final normed hidden states with ``return_hidden``."""
+    final normed hidden states with ``return_hidden``.  ``attn_impl`` is
+    the full-sequence attention op (module docstring)."""
     B, S = tokens.shape
     embed = cm.maybe_dequant(params["embed"], compute_dtype)
     x = embed[tokens]
@@ -272,7 +294,7 @@ def forward(params: TransformerParams, tokens: torch.Tensor,
     for i in range(cfg.n_layers):
         lp = layer_params(layers, i)
         h, k, v = _attn_full_seq(cm.rms_norm(x, lp["ln1"], cfg.norm_eps),
-                                 lp, cfg, positions, compute_dtype)
+                                 lp, cfg, positions, compute_dtype, attn_impl)
         x = x + h
         x = x + _ffn(cm.rms_norm(x, lp["ln2"], cfg.norm_eps), lp, cfg,
                      compute_dtype)
@@ -290,9 +312,11 @@ def forward(params: TransformerParams, tokens: torch.Tensor,
 
 
 def encode(params: TransformerParams, tokens: torch.Tensor,
-           cfg: TransformerConfig, compute_dtype=torch.float32) -> torch.Tensor:
+           cfg: TransformerConfig, compute_dtype=torch.float32,
+           attn_impl=None) -> torch.Tensor:
     """Mean-pooled, L2-normalized final hidden states (the embedding path)."""
-    h = forward(params, tokens, cfg, compute_dtype, return_hidden=True)
+    h = forward(params, tokens, cfg, compute_dtype, return_hidden=True,
+                attn_impl=attn_impl)
     pooled = torch.mean(h.float(), dim=1)
     return pooled / (torch.linalg.norm(pooled, dim=-1, keepdim=True) + 1e-6)
 
@@ -390,14 +414,17 @@ def decode_step(params: TransformerParams, cache: dict, token: torch.Tensor,
 
 def greedy_generate(params: TransformerParams, tokens: torch.Tensor,
                     lengths: torch.Tensor, cfg: TransformerConfig, n_new: int,
-                    compute_dtype=torch.bfloat16) -> torch.Tensor:
+                    compute_dtype=torch.bfloat16, attn_impl=None,
+                    decode_attn_impl=None) -> torch.Tensor:
     """Batched greedy continuation.  tokens: (B, T) int32 prompts,
     right-padded; lengths: (B,) valid prompt lengths.  Returns (B, n_new)
     int32 generated tokens.
 
     One full prefill forward, a per-row first-token argmax, then decode
-    steps against a dense cache of T + n_new positions, with the reference
-    attention as in JAX (which runs no kernel here).  Padding is inert: row
+    steps against a dense cache of T + n_new positions.  ``attn_impl`` is
+    the prefill's full-sequence attention op and ``decode_attn_impl`` the
+    decode steps' (``decode_step``'s ``attn_impl``); ``None`` runs the
+    reference attention, as JAX does.  Padding is inert: row
     b's pad positions >= lengths[b] hold garbage K/V from the prefill, but
     step i writes position lengths[b]+i before attending up to it.  JAX's
     scan also runs a last decode step whose token it drops; the port skips
@@ -405,7 +432,7 @@ def greedy_generate(params: TransformerParams, tokens: torch.Tensor,
     """
     B, T = tokens.shape
     logits, _aux, prefix = forward(params, tokens, cfg, compute_dtype,
-                                   collect_cache=True)
+                                   collect_cache=True, attn_impl=attn_impl)
     cache = make_cache(cfg, B, T + n_new, prefix["k"].dtype,
                        device=tokens.device)
     for k, v in prefix.items():
@@ -416,7 +443,8 @@ def greedy_generate(params: TransformerParams, tokens: torch.Tensor,
                        dim=-1).to(torch.int32)
     out, pos = [tok], lengths
     for _ in range(n_new - 1):
-        lg, cache = decode_step(params, cache, tok, pos, cfg, compute_dtype)
+        lg, cache = decode_step(params, cache, tok, pos, cfg, compute_dtype,
+                                attn_impl=decode_attn_impl)
         tok = torch.argmax(lg[:, :cfg.vocab_size], dim=-1).to(torch.int32)
         pos = pos + 1
         out.append(tok)

@@ -7,7 +7,10 @@ Pipeline per request, on one device:
   decode [-> iterative retrieval during decode]
 
 The pre-prefill stages are the executors of ``repro_torch.serving.
-executors``, chosen by the JAX stage registry's activation rules.
+executors``, chosen by the stage registry (``repro_torch.core.
+stage_registry``, a copy of the JAX one) from the engine's components and
+config; ``EngineConfig.from_schema`` derives the stage fields from a
+``RAGSchema`` through the same registry.
 
 Hot path, as in the JAX engine:
 
@@ -24,12 +27,17 @@ Hot path, as in the JAX engine:
   (on the dense pool that replaces JAX's whole-cache step-mask merge).
   Decode attention is a CUDA kernel on a CUDA device (``attn_impl=
   "cuda"``: paged-decode on the paged pool, dense decode on the dense
-  one) or the reference masked softmax (``"ref"``).  ``fused_decode=
+  one) or the reference masked softmax (``"ref"``).  With ``"cuda"``
+  full-sequence attention -- prefill, the encoder (corpus and query
+  embedding, rerank, safety screen) and the executors' greedy
+  generation -- runs the flash attention kernel too; ``"ref"`` keeps the
+  einsum paths that mirror JAX.  ``fused_decode=
   False`` keeps the pre-fusion path: argmax on the host, and the
   whole-cache copy JAX makes there counted in ``cache_copy_bytes``.
 * Iteratively retrieved context and chunked prompt prefill share one
   bucketed chunk-extend forward (``tr.paged_chunk_extend``; dense:
-  ``tr.chunk_extend``).
+  ``tr.chunk_extend``), with plain attention: a chunk attending to a
+  cache at an offset is not the flash kernel's function.
 
 PyTorch runs eagerly, so where the JAX engine jit-compiles one program
 per prompt bucket, the port just runs the forward; ``prefill_compiles``
@@ -47,10 +55,10 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core.stage_registry import REGISTRY
 from repro_torch.models import transformer as tr
 from repro_torch.retrieval.backend import (ExactBackend, FallbackBackend,
                                            make_backend)
-from repro_torch.serving.executors import engine_executors
 from repro_torch.serving.faults import EngineCrash, EngineHealth
 from repro_torch.serving.kv_cache import KVCachePool, PagedKVCachePool
 from repro_torch.serving.request import Request, State
@@ -134,6 +142,18 @@ class EngineConfig:
                     "chunked prefill requires the paged KV pool "
                     "(paged=True with fused_decode=True)")
 
+    @classmethod
+    def from_schema(cls, schema, **overrides) -> "EngineConfig":
+        """Derive an EngineConfig from a RAGSchema via the stage registry
+        (``REGISTRY.engine_config_fields``): every enabled stage sets the
+        fields it derives from the schema, so those are never hand-set
+        beside a schema.  ``overrides`` carry deployment knobs the schema
+        does not describe (``decode_slots``, the retrieval backend, ...)
+        and win over derived values."""
+        fields = REGISTRY.engine_config_fields(schema)
+        fields.update(overrides)
+        return cls(**fields)
+
 
 @dataclass
 class Component:
@@ -191,10 +211,11 @@ class RAGEngine:
         self.fail_reason: str | None = None
         self.injector = None
         self._retrieval_degraded = False
-        # resolved decode-attention implementation ("auto" picks by device)
+        # resolved attention implementation ("auto" picks by device)
         self.attn_impl = cfg.attn_impl if cfg.attn_impl != "auto" else (
             "cuda" if self.device.type == "cuda" else "ref")
-        self._paged_attn, self._dense_attn = self._make_attn_impls()
+        self.paged_attn, self.dense_attn, self.seq_attn = \
+            self._make_attn_impls()
         self._prefill_buckets: set[int] = set()
         self._append_buckets: set[int] = set()
         # database embeddings (the paper's offline encode step)
@@ -213,7 +234,7 @@ class RAGEngine:
                                           device=self.device))
             primary = FallbackBackend(chain)
         self.backend = primary
-        self.executors = engine_executors(self)
+        self.executors = REGISTRY.engine_executors(self)
 
     # ---------------- health / fault API ------------------------------------
 
@@ -272,15 +293,16 @@ class RAGEngine:
     # ---------------- shared primitives -----------------------------------
 
     def _make_attn_impls(self):
-        """The (paged, dense) decode-attention callables for the resolved
-        ``attn_impl``; ``(None, None)`` keeps the decode steps' built-in
-        reference (gather/repeat + masked softmax)."""
+        """The (paged decode, dense decode, full-sequence) attention
+        callables for the resolved ``attn_impl``; ``(None, None, None)``
+        keeps the model functions' built-in references."""
         if self.attn_impl == "ref":
-            return None, None
+            return None, None, None
         from repro_torch.kernels.decode_attention.ops import decode_attention
+        from repro_torch.kernels.flash_attention.ops import flash_attention
         from repro_torch.kernels.paged_attention.ops import (
             paged_decode_attention)
-        return paged_decode_attention, decode_attention
+        return paged_decode_attention, decode_attention, flash_attention
 
     def has_executor(self, name: str) -> bool:
         return any(ex.name == name for ex in self.executors)
@@ -333,7 +355,8 @@ class RAGEngine:
             valid = chunk.shape[0]
             if valid < bs:
                 chunk = np.pad(chunk, ((0, bs - valid), (0, 0)))
-            h = tr.encode(self.enc.params, self._tensor(chunk), self.enc.cfg)
+            h = tr.encode(self.enc.params, self._tensor(chunk), self.enc.cfg,
+                          attn_impl=self.seq_attn)
             outs.append(h[:valid])
         return torch.cat(outs)
 
@@ -383,7 +406,8 @@ class RAGEngine:
         padded[0, :length] = prompt
         logits, _aux, cache = tr.forward(self.gen.params,
                                          self._tensor(padded), self.gen.cfg,
-                                         collect_cache=True)
+                                         collect_cache=True,
+                                         attn_impl=self.seq_attn)
         # the bucket salts the page keys: pages are shared only between
         # prefills that ran the same shapes on the same inputs
         self.pool.write_prefix(slot, cache, length, tokens=prompt,
@@ -559,13 +583,13 @@ class RAGEngine:
                 self.gen.params, self.pool.cache, self._tensor(token_vec),
                 self.pool.positions(),
                 self._tensor(self.pool.block_tables()), self.gen.cfg,
-                attn_impl=self._paged_attn,
+                attn_impl=self.paged_attn,
                 write_mask=self._tensor(step_mask))
         else:
             logits, self.pool.cache = tr.decode_step(
                 self.gen.params, self.pool.cache, self._tensor(token_vec),
                 self.pool.positions(), self.gen.cfg,
-                attn_impl=self._dense_attn,
+                attn_impl=self.dense_attn,
                 write_mask=self._tensor(step_mask))
         return logits[:, :self.gen.cfg.vocab_size]
 

@@ -1,11 +1,12 @@
 """Stage executors of the port's serving engine (mirror of
-``repro.serving.executors`` and of the executor half of
-``repro.core.stage_registry``).
+``repro.serving.executors``).
 
-``EXECUTOR_FACTORIES`` lists the stages in the JAX registry's order, each
-with the activation rule of its ``make_executor`` factory
-(``stage_registry.py``): rewrite, multi-query fan-out, retrieval, rerank,
-safety filter.
+The stage registry (``repro_torch.core.stage_registry``) decides which
+executors an engine gets and builds them with the engine's attention
+ops: ``attn_impl`` is the full-sequence op of the generation prefill and
+the encoder (the flash kernel on a CUDA engine), ``decode_attn_impl``
+the dense decode op of greedy generation; ``None`` keeps the reference
+attention.
 
 Executor contract: ``run(engine, request)`` mutates the request in place
 (state transitions + stage outputs) and may call engine primitives.
@@ -27,8 +28,10 @@ class GreedyGenerator:
     """Batched greedy generation (``tr.greedy_generate``): prompts are
     right-padded to a power-of-two bucket and all rows decode together."""
 
-    def __init__(self, comp):
+    def __init__(self, comp, attn_impl=None, decode_attn_impl=None):
         self.comp = comp
+        self.attn_impl = attn_impl
+        self.decode_attn_impl = decode_attn_impl
 
     def __call__(self, prompts: list[np.ndarray],
                  n_tokens: int) -> np.ndarray:
@@ -43,7 +46,9 @@ class GreedyGenerator:
         out = tr.greedy_generate(self.comp.params,
                                  torch.from_numpy(tokens).to(dev),
                                  torch.from_numpy(lengths).to(dev),
-                                 self.comp.cfg, n_tokens)
+                                 self.comp.cfg, n_tokens,
+                                 attn_impl=self.attn_impl,
+                                 decode_attn_impl=self.decode_attn_impl)
         return out.cpu().numpy()
 
 
@@ -52,15 +57,17 @@ class Encoder:
     against the embedding table (``tr.check_ids``) and embedded on the
     component's device."""
 
-    def __init__(self, comp):
+    def __init__(self, comp, attn_impl=None):
         self.comp = comp
+        self.attn_impl = attn_impl
 
     def __call__(self, tokens) -> torch.Tensor:
         tokens = np.asarray(tokens)
         tr.check_ids(tokens, self.comp.cfg)
         return tr.encode(self.comp.params,
                          torch.from_numpy(np.ascontiguousarray(tokens)).to(
-                             self.comp.params.device), self.comp.cfg)
+                             self.comp.params.device), self.comp.cfg,
+                         attn_impl=self.attn_impl)
 
 
 def _query(req) -> np.ndarray:
@@ -72,8 +79,8 @@ class RewriteExecutor:
     expansion tokens."""
     name = "rewrite"
 
-    def __init__(self, comp):
-        self._gen = GreedyGenerator(comp)
+    def __init__(self, comp, attn_impl=None, decode_attn_impl=None):
+        self._gen = GreedyGenerator(comp, attn_impl, decode_attn_impl)
 
     def run(self, eng, req) -> None:
         req.state = State.REWRITING
@@ -88,8 +95,8 @@ class MultiQueryExecutor:
     retrieval searches with every variant and unions the candidates."""
     name = "multi_query"
 
-    def __init__(self, comp):
-        self._gen = GreedyGenerator(comp)
+    def __init__(self, comp, attn_impl=None, decode_attn_impl=None):
+        self._gen = GreedyGenerator(comp, attn_impl, decode_attn_impl)
 
     def run(self, eng, req) -> None:
         base = _query(req)
@@ -132,8 +139,8 @@ class RerankExecutor:
     """Score retrieval candidates with the reranker encoder; keep top-k."""
     name = "rerank"
 
-    def __init__(self, comp):
-        self._encode = Encoder(comp)
+    def __init__(self, comp, attn_impl=None):
+        self._encode = Encoder(comp, attn_impl)
 
     def run(self, eng, req) -> None:
         cand = req.candidate_ids
@@ -153,8 +160,8 @@ class SafetyFilterExecutor:
     ``None`` the stage only records scores."""
     name = "safety_filter"
 
-    def __init__(self, comp):
-        self._encode = Encoder(comp)
+    def __init__(self, comp, attn_impl=None):
+        self._encode = Encoder(comp, attn_impl)
 
     def _score(self, eng, doc_ids) -> np.ndarray:
         dv = self._encode(eng.corpus[doc_ids])
@@ -184,48 +191,3 @@ class SafetyFilterExecutor:
             return doc_ids
         return doc_ids[scores >= thr]
 
-
-def _rewrite(engine):
-    if engine.cfg.rewrite_tokens and engine.rewriter is not None:
-        return RewriteExecutor(engine.rewriter)
-    return None
-
-
-def _multi_query(engine):
-    if engine.cfg.fanout_queries > 1:
-        model = engine.rewriter if engine.rewriter is not None else engine.gen
-        return MultiQueryExecutor(model)
-    return None
-
-
-def _retrieval(engine):
-    return RetrieveExecutor()
-
-
-def _rerank(engine):
-    if engine.cfg.rerank and engine.reranker is not None:
-        return RerankExecutor(engine.reranker)
-    return None
-
-
-def _safety_filter(engine):
-    if engine.safety is not None:
-        return SafetyFilterExecutor(engine.safety)
-    return None
-
-
-#: (stage name, factory) in the JAX registry's order (``order=`` 20, 25,
-#: 30, 40, 45); a factory returns an executor or None when inactive.
-EXECUTOR_FACTORIES = (
-    ("rewrite", _rewrite),
-    ("multi_query", _multi_query),
-    ("retrieval", _retrieval),
-    ("rerank", _rerank),
-    ("safety_filter", _safety_filter),
-)
-
-
-def engine_executors(engine) -> list:
-    """The executable pipeline for one engine, in registry order."""
-    return [ex for _, make in EXECUTOR_FACTORIES
-            if (ex := make(engine)) is not None]

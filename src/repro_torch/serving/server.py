@@ -6,7 +6,7 @@ requests are submitted one at a time with their own arrival timestamps
 (open loop), may carry a deadline, and stream their tokens back through a
 callback or an iterator on the returned :class:`RequestHandle`.
 
-    server = RAGServer(engine)
+    server = RAGServer(engine)        # or RAGServer.from_plan(plan, ...)
     h = server.submit(question, max_new_tokens=32)
     for tok in h.tokens():                     # drives the server
         ...
@@ -18,8 +18,11 @@ closed-batch ``serve(list)``.  Deadlines are absolute ``time.monotonic``
 seconds; a request whose deadline passes while it is still queued ends
 ``State.EXPIRED`` and is never prefilled.
 
-Not ported yet: the disaggregated cluster behind the same front-end,
-``from_plan``, ``replay_trace`` and span tracing.
+``from_plan`` deploys an optimizer-chosen ``ServingPlan`` on one
+collocated engine, and ``replay_trace`` replays a JSONL arrival trace
+(``repro_torch.serving.trace``) against the wall clock.  Not ported yet:
+the disaggregated cluster behind the same front-end (``topology=
+"disagg"`` raises) and span tracing.
 """
 
 from __future__ import annotations
@@ -135,6 +138,35 @@ class RAGServer:
     def n_expired(self) -> int:
         return sum(1 for h in self.handles.values()
                    if h.request.state is State.EXPIRED)
+
+    # ---------------- deployment -------------------------------------------
+
+    @classmethod
+    def from_plan(cls, plan, generative, encoder, corpus_tokens, *,
+                  rewriter=None, reranker=None, safety=None,
+                  topology: str = "single", device="cuda",
+                  **config_overrides) -> "RAGServer":
+        """Deploy an optimizer-chosen :class:`~repro_torch.core.serving_plan.
+        ServingPlan`: the plan's schema and schedule become the engine
+        configuration (``plan.engine_config()``), the caller supplies the
+        model components and the corpus.  ``config_overrides`` win last.
+
+        ``topology="single"`` runs every stage on one collocated engine on
+        ``device``.  ``"disagg"`` raises ``NotImplementedError``: the
+        disaggregated cluster is not ported yet (ROADMAP queue 1, item 4:
+        the cluster, then the controller)."""
+        if topology in ("disagg", "disaggregated"):
+            raise NotImplementedError(
+                "topology='disagg' needs the disaggregated cluster, which "
+                "the port does not have yet (ROADMAP queue 1, item 4)")
+        if topology not in ("single", "collocated"):
+            raise ValueError(f"unknown topology {topology!r}")
+        from repro_torch.serving.engine import RAGEngine
+        cfg = plan.engine_config(**config_overrides)
+        engine = RAGEngine(generative, encoder, corpus_tokens, cfg,
+                           rewriter=rewriter, reranker=reranker,
+                           safety=safety, device=device)
+        return cls(engine)
 
     # ---------------- submission -------------------------------------------
 
@@ -284,6 +316,29 @@ class RAGServer:
         self.engine._dispatch_iterative(force=True)
         self._deliver()
         return handles
+
+    def replay_trace(self, trace, *, on_token=None,
+                     max_new_tokens=None, deadline=None,
+                     max_steps: int = 1_000_000) -> list[RequestHandle]:
+        """Replay a JSONL arrival-trace file (or a list of
+        :class:`~repro_torch.serving.trace.TraceEntry`) against the wall
+        clock.  Per-entry ``max_new_tokens``/``deadline_s`` win over the
+        ``max_new_tokens``/``deadline`` defaults given here."""
+        from repro_torch.serving.trace import TraceEntry, load_trace
+        if not (entries := trace if isinstance(trace, (list, tuple))
+                else load_trace(trace)):
+            return []
+        if not all(isinstance(e, TraceEntry) for e in entries):
+            raise TypeError("replay_trace takes a trace file or a list of "
+                            "TraceEntry")
+        return self.replay(
+            [e.question for e in entries],
+            [e.arrival_s for e in entries],
+            max_new_tokens=[e.max_new_tokens if e.max_new_tokens is not None
+                            else max_new_tokens for e in entries],
+            deadline=[e.deadline_s if e.deadline_s is not None
+                      else deadline for e in entries],
+            on_token=on_token, max_steps=max_steps)
 
     # ---------------- reporting --------------------------------------------
 

@@ -188,6 +188,10 @@ def test_entry_points_refuse_a_missing_gpu():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         bridge.params_from_jax({"ln_f": np.ones(4, np.float32)})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bridge.tensor_from_numpy(np.ones(4, np.float32))
+    assert bridge.tensor_from_numpy(np.ones(4, np.float32),
+                                    device="cpu").device.type == "cpu"
     from repro_torch.retrieval.backend import ExactBackend, IVFPQBackend
     for make in (lambda: ExactBackend(np.zeros((4, 2), np.float32)),
                  lambda: IVFPQBackend(np.zeros((4, 2), np.float32))):

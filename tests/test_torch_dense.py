@@ -233,7 +233,7 @@ def test_dense_pool_matches_jax_and_round_trips():
     js, ts = jp.alloc(7), tp.alloc(7)
     assert js == ts
     jp.write_prefix(js, {k: jnp.asarray(v) for k, v in pre.items()}, 11)
-    tp.write_prefix(ts, {k: bridge.tensor_from_numpy(v)
+    tp.write_prefix(ts, {k: bridge.tensor_from_numpy(v, device="cpu")
                          for k, v in pre.items()}, 11)
     jp.advance([js])
     tp.advance([ts])

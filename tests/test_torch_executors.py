@@ -1,7 +1,7 @@
 """Port vs JAX: the pre-prefill stage executors on the CPU.
 
-* Which executors an engine gets: the port's factories against the JAX
-  stage registry's, for every combination of stage models and knobs.
+* Which executors an engine gets: the port's stage registry against the
+  JAX one, for every combination of stage models and knobs.
 * ``GreedyGenerator`` (rewrite and multi-query fan-out) against JAX's
   fused ``tr.greedy_generate`` program: equal tokens under the near-tie
   rule of ``tests/test_torch_engine.py`` (the third row of this input
@@ -29,6 +29,7 @@ import torch
 from repro.core.stage_registry import REGISTRY
 from repro.models import transformer as jtr
 from repro.serving import executors as jex
+from repro_torch.core.stage_registry import REGISTRY as TREGISTRY
 from repro_torch.serving import engine as te
 from repro_torch.serving import executors as tex
 from repro_torch.serving.request import Request, State
@@ -41,11 +42,13 @@ torch.set_num_threads(1)
 
 
 def _stub(cfg, **models):
-    """An engine as far as the executor factories look at one."""
+    """An engine as far as the executor factories look at one (the port's
+    also hand the engine's attention ops to the executors)."""
     return types.SimpleNamespace(cfg=cfg, gen=models.get("gen"),
                                  rewriter=models.get("rewriter"),
                                  reranker=models.get("reranker"),
-                                 safety=models.get("safety"))
+                                 safety=models.get("safety"),
+                                 seq_attn=None, dense_attn=None)
 
 
 @pytest.mark.parametrize("models", [(), ("rewriter",), ("reranker",),
@@ -60,7 +63,7 @@ def test_factories_follow_the_registry(stack, models, knobs):
                          for m in models}}
     tm = {k: _port(v) for k, v in jm.items()}
     want = REGISTRY.engine_executors(_stub(te.EngineConfig(**knobs), **jm))
-    got = tex.engine_executors(_stub(te.EngineConfig(**knobs), **tm))
+    got = TREGISTRY.engine_executors(_stub(te.EngineConfig(**knobs), **tm))
     assert [e.name for e in got] == [e.name for e in want]
     mq = [e for e in got if e.name == "multi_query"]
     if mq:   # fan-out generates with the rewriter when there is one

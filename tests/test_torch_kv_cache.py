@@ -64,7 +64,7 @@ def _assert_same(jp, tp):
 def _both(jp, tp, method, *args, cache=None, **kw):
     if cache is not None:
         ja = ({k: jnp.asarray(v) for k, v in cache.items()},)
-        ta = ({k: bridge.tensor_from_numpy(v) for k, v in cache.items()},)
+        ta = ({k: bridge.tensor_from_numpy(v, device="cpu") for k, v in cache.items()},)
     else:
         ja = ta = ()
     rj = getattr(jp, method)(*args[:1], *ja, *args[1:], **kw)
