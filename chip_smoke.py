@@ -18,7 +18,11 @@ during decode.  Phases, each printed as one JSON line, in order:
   device       card name, ``nvidia-smi`` name and power limit, TF32 flags
   build        nvcc build of ``src/repro_torch/csrc/*.cu`` (seconds)
   setup        model weights, corpus encode, IVF-PQ index, two engines
-  kernels      each kernel vs its plain version at its path's shapes
+  kernels      each kernel vs its plain version at its path's shapes,
+               timed warm in L2 (flash and dense decode also cold, dense
+               decode also at greedy generation's B=1 shape, with its
+               split); flash also at a few edges (ragged S, kv_len < S,
+               D=128)
   serve        16 Poisson-arriving questions through the paged engine;
                every kernel's launch count over this phase alone
   serve_dense  8 Poisson-arriving questions through the dense engine and
@@ -105,6 +109,20 @@ def device_ms(fn, reps: int = TIMING_REPS) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms_cold(fn, reps: int = 20) -> float:
+    """Device time of one ``fn()`` call with its inputs out of L2: each
+    captured launch follows a write of a 128 MB buffer (2.5x the H100's 50
+    MB L2), and the time of the writes alone, captured the same way, is
+    subtracted."""
+    import torch
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+
+    def flushed():
+        flush.zero_()
+        fn()
+    return device_ms(flushed, reps) - device_ms(flush.zero_, reps)
 
 
 def bound(n_bytes: float, n_ops: float, dtype: str) -> tuple[float, str]:
@@ -271,21 +289,33 @@ def check_paged_attention() -> dict:
 def check_decode_attention() -> dict:
     """Kernel vs plain version at the dense path's widths (B=8, S=1,024,
     H_kv=8, G=4, D=64), bf16 and f32, over lengths 1, a non-multiple of
-    the tile, S, S + 1 (clamps to S), two equal rows, 16 and 1,000.  One
+    the tile, S, S + 1 (clamps to S), two equal rows, 16 and 1,000; and at
+    greedy generation's shape (B=1, S=40: the rewrite's 8-token prompt
+    bucket plus its 32 new tokens, at its last step's length 39).  One
     ``scaled_dot_product_attention`` call on the same inputs is timed as a
     yardstick (``library_ms``); the port never calls it."""
+    import torch
+    from repro_torch.kernels.decode_attention import ops as da
+
+    b, s, h_kv, g, d = 8, 1024, 8, 4, 64
+    out = {"tol_reason": "kernel and plain version both keep f32 softmax "
+                         "statistics and round the f32 result once; they "
+                         "sum in other orders, so bf16 outputs of order "
+                         "one differ by at most about one bf16 step"}
+    out.update(_decode_at(b, s, h_kv, g, d, [1, 537, s, s + 1, 300, 300, 16,
+                                             1000], seed=2))
+    out["greedy"] = _decode_at(1, 40, h_kv, g, d, [39], seed=4)
+    return out
+
+
+def _decode_at(b, s, h_kv, g, d, lengths, seed) -> dict:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import ops as da
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
-    b, s, h_kv, g, d = 8, 1024, 8, 4, 64
-    lengths = [1, 537, s, s + 1, 300, 300, 16, 1000]
-    rng = np.random.default_rng(2)
-    out = {"tol_reason": "kernel and plain version both keep f32 softmax "
-                         "statistics and round the f32 result once; they "
-                         "sum in other orders, so bf16 outputs of order "
-                         "one differ by at most about one bf16 step"}
+    rng = np.random.default_rng(seed)
+    out = {}
     for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-5)):
         q = torch.tensor(rng.standard_normal((b, h_kv, g, d)),
                          dtype=dtype, device="cuda")
@@ -329,16 +359,23 @@ def check_decode_attention() -> dict:
         out.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                    library_max_abs_err=lib_err, bound_ms=bound_ms,
                    bound_by=bound_by, max_abs_err=err,
-                   shape=[b, s, h_kv, g, d], lengths=lengths)
+                   shape=[b, s, h_kv, g, d], lengths=lengths,
+                   n_split_chunk=da.split_plan(
+                       b, h_kv, s, da.tile_positions(d, q.element_size())),
+                   cold_ms=device_ms_cold(
+                       lambda: da.decode_attention_cuda(q, k, v, ln)),
+                   library_cold_ms=device_ms_cold(library))
     return out
 
 
 def check_flash_attention() -> dict:
     """Kernel vs plain version at the two shapes its path runs: the
     generator's prefill (B=1, S=1,024, H=32, H_kv=8, D=64, bf16, causal)
-    and the encoder's batch (B=32, S=256, H=12, D=64, f32, full).  One
-    ``scaled_dot_product_attention`` call on the same inputs is timed as a
-    yardstick (``library_ms``); the port never calls it."""
+    and the encoder's batch (B=32, S=256, H=12, D=64, f32, full), each
+    timed warm and cold in L2; then a few edges (ragged S, kv_len < S,
+    D=128) against the plain version.  One ``scaled_dot_product_attention``
+    call on the same inputs is timed as a yardstick (``library_ms``); the
+    port never calls it."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa
@@ -386,7 +423,33 @@ def check_flash_attention() -> dict:
                      "causal": causal, "max_abs_err": err, "tol": tol,
                      "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                      "library_max_abs_err": lib_err, "bound_ms": bound_ms,
-                     "bound_by": bound_by}
+                     "bound_by": bound_by,
+                     "cold_ms": device_ms_cold(
+                         lambda: fa.flash_attention_cuda(q, k, v, causal)),
+                     "library_cold_ms": device_ms_cold(library)}
+    # edges: (B, S, H, H_kv, D, dtype, causal, kv_len, tol)
+    edges = [(2, 200, 8, 2, 64, torch.bfloat16, True, 131, 2e-2),
+             (1, 77, 4, 4, 128, torch.bfloat16, False, 77, 2e-2),
+             (3, 65, 12, 12, 64, torch.float32, False, 40, 1e-5),
+             (1, 130, 8, 2, 128, torch.float32, True, 130, 1e-5)]
+    out["edges"] = []
+    for b, s, h, h_kv, d, dtype, causal, kv_len, tol in edges:
+        q = torch.tensor(rng.standard_normal((b, s, h, d)), dtype=dtype,
+                         device="cuda")
+        k, v = (torch.tensor(rng.standard_normal((b, s, h_kv, d)),
+                             dtype=dtype, device="cuda") for _ in range(2))
+        got = fa.flash_attention_cuda(q, k, v, causal, kv_len)
+        want = flash_attention_ref(q, k, v, causal, kv_len)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        if not err <= tol:
+            raise AssertionError(f"flash attention at {(b, s, h, h_kv, d)} "
+                                 f"{dtype} causal={causal} kv_len={kv_len}: "
+                                 f"max abs err {err} > {tol}")
+        out["edges"].append({"shape": [b, s, h, h_kv, d],
+                             "dtype": str(dtype), "causal": causal,
+                             "kv_len": kv_len, "max_abs_err": err,
+                             "tol": tol})
     # the kernels line reports the generator's prefill shape
     out.update({key: out["prefill"][key] for key in
                 ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},

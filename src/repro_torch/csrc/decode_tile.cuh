@@ -1,8 +1,8 @@
-// Shared body of the port's two decode-attention kernels for Hopper
-// (sm_90a): `paged_decode_attention.cu` (rows found through a block table)
-// and `decode_attention.cu` (rows of a dense cache).  Both attend one
-// decode query per query head over `length` K/V rows of one kv head; they
-// differ only in where row `pos` lives, which each passes in as `row_of`.
+// Tile loop of the paged decode-attention kernel for Hopper (sm_90a),
+// `paged_decode_attention.cu`: one decode query per query head attends
+// over `length` K/V rows of one kv head, row `pos` found by the caller's
+// `row_of` (through the block table).  The dense kernel,
+// `decode_attention.cu`, has its own split-over-the-sequence body.
 //
 // One thread block of kTile threads per (sequence b, kv head h) walks the
 // first ceil(length/kTile) tiles of kTile positions.  In a tile, thread t
@@ -17,30 +17,13 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstddef>
-#include <cstdint>
+#include "common.cuh"
 
 namespace decode_tile {
 
 constexpr float kNegInf = -1e30f;
 constexpr int kTile = 128;             // positions per tile = threads
 constexpr int kWarps = kTile / 32;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's cast
-}
 
 // Unpack one 32-bit word of a 16-byte load into floats.
 __device__ __forceinline__ void unpack(uint32_t w, float* out, float) {
@@ -179,16 +162,6 @@ __device__ __forceinline__ void attend(const T* __restrict__ q_cell,
   for (int i = tid; i < g_n * D; i += kTile) {
     out_cell[i] = from_f32<T>(acc_s[i] / fmaxf(l_s[i / D], 1e-30f));
   }
-}
-
-// Raise the kernel's dynamic shared memory limit when a block needs more
-// than the default 48 KB; returns a cudaError_t as int.
-template <typename Kernel>
-inline int allow_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return 0;
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem)));
 }
 
 }  // namespace decode_tile

@@ -11,218 +11,598 @@
 // The TPU kernel keeps a query tile in VMEM and walks K/V tiles in a loop,
 // carrying the online-softmax statistics (m, l, acc) in f32; its causal
 // loop stops at the diagonal tile, and its wrapper pads S to the tile.
-// Here one block of kThreads threads takes kRows query rows of one
-// (sequence, head); kLanes threads share a row, each holding a quarter of
-// its q and acc in registers (float4 chunks interleaved across the four
-// lanes, so their shared-memory reads fall in distinct banks and the
-// eight rows of a warp read the same key by broadcast).  The block stages
-// kKeys rows of K and V at a time in shared memory as f32, scores them
-// (partial dot products summed over the four lanes by shuffles), and
-// folds them into (m, l, acc) with exp2.  The causal walk stops at the
-// block's last row; the ragged last tile and kv_len are masked in the
-// kernel, so S is not padded.  Blocks are issued heaviest causal tile
-// first.
+// Here a block takes 64 query rows of one (sequence, head) and walks
+// 64-key tiles of K/V itself; the causal walk stops at the block's last
+// row.  Only a tile that holds a warp's causal diagonal or the ragged end
+// of kv_len / S is masked, so S is not padded.  K/V tiles come into a ring
+// of shared memory by 16-byte cp.async copies, each thread copying the
+// same chunks of every tile; rows at or past the key end are zero-filled
+// by a source size of 0.
 //
-// What bounds it: at the serving shapes the work (4*D operations per
-// visible query-key pair and head) is far above the bytes, so operations
-// bound it.  This first version runs them on the f32 FMA units, not the
-// tensor cores: bf16 tiles through wgmma (and TMA loads of K/V) are the
-// next step.
+// What bounds it on the H100: 4*D operations per visible query-key pair
+// and head, far above the bytes at the serving shapes -- 4.3 GFLOP against
+// 4 MB for a 1,024-token prefill -- so the operations: 4.35 us at the
+// 989 TFLOP/s bf16 tensor-core rate, 96 us for the encoder's f32 batch at
+// the 67 TFLOP/s f32 FMA rate.  The design per input type:
+//
+// bf16 (prefill, greedy generation's prompt pass): FlashAttention-2 on the
+// warp-level tensor-core instruction mma.sync.m16n8k16 (bf16 in, f32
+// accumulate), which peaks near 600 TFLOP/s on this card, not 989 (that
+// needs wgmma).  4 warps, 16 query rows each.  The Q tile is copied to
+// shared memory once and held in registers as A fragments (ldmatrix).  K/V
+// stay bf16 in a three-slot ring, two tiles in flight under this tile's
+// math; rows are padded by 16 bytes, which keeps ldmatrix (K) and
+// ldmatrix.trans (V) free of bank conflicts.  S = Q K^T lands in f32
+// registers; the online softmax runs on those fragments: row max and sum
+// by two shuffles in the quad of lanes that shares a row, once per tile,
+// and one ex2 per (row, key) with log2(e)/sqrt(D) folded into the scale.
+// P is rounded to bf16 in registers and fed straight back as the A
+// operand of P V (the m16n8k16 accumulator layout is its A layout); O
+// accumulates in f32.  The output is divided by l once, rounded once,
+// staged through shared memory and written in 16-byte stores.  Blocks are
+// issued heaviest causal tile first across all heads.  Not done: wgmma,
+// TMA and warp specialisation.
+//
+// f32 (the encoder: corpus and query embeds, rerank, safety): no TF32, so
+// the JAX f32 semantics hold; a register-tiled micro-GEMM on the FMA
+// units.  8 warps; a thread owns a 4 x 4 tile of scores (rows r + 16i,
+// keys c + 16j) and the matching 4 rows x D/16 columns of O.  K/V tiles
+// come through a two-slot ring; a thread reads float4s of 4 d values of Q
+// and K (rows padded to D+4 floats: conflict-free), so each pair of 16-byte
+// loads feeds 16 FMAs.  P goes through shared memory once per tile for
+// P V.  Each exponential is computed once, and the row statistics are
+// reduced once per tile across the 16 lanes of a row.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 #include <cmath>
 
 namespace {
 
-constexpr int kRows = 64;                   // query rows per block
-constexpr int kLanes = 4;                   // threads per query row
-constexpr int kThreads = kRows * kLanes;    // 256
-constexpr int kKeys = 32;                   // keys per shared-memory tile
+constexpr int kKeys = 64;   // keys per K/V tile
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+// ---------------------------------------------------------------------------
+// bf16: mma.sync tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kWarpsBf16 = 4;                  // 16 query rows each
+constexpr int kThreadsBf16 = kWarpsBf16 * 32;
+constexpr int kRowsBf16 = kWarpsBf16 * 16;     // query rows per block
+constexpr int kStagesBf16 = 3;                 // K/V tiles in the ring
+static_assert(kStagesBf16 >= 2, "a tile in flight while one is read");
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
 }
-__device__ __forceinline__ void store(float x, float* p) { *p = x; }
-__device__ __forceinline__ void store(float x, __nv_bfloat16* p) {
-  *p = __float2bfloat16(x);
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
 }
 
-// One 16-byte load of T, widened to float.
-template <typename T>
-struct Vec;
+// c += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
-template <>
-struct Vec<float> {
-  static constexpr int n = 4;
-  __device__ __forceinline__ static void load(const float* src, float* dst) {
-    const float4 x = *reinterpret_cast<const float4*>(src);
-    dst[0] = x.x;
-    dst[1] = x.y;
-    dst[2] = x.z;
-    dst[3] = x.w;
-  }
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// 2^x for the probabilities of the bf16 path, which round to bf16 next:
+// the hardware approximation (relative error ~2^-22), subnormals to 0
+__device__ __forceinline__ float exp2_p(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int D>
+struct Bf16Smem {
+  static constexpr int kStride = D + 8;                // bf16 per row
+  static constexpr int kQ = kRowsBf16 * kStride;       // bf16 of the Q tile
+  static constexpr int kKV = kKeys * kStride;          // bf16 per K/V tile
+  static constexpr size_t kBytes =
+      sizeof(__nv_bfloat16) * (kQ + 2 * kStagesBf16 * kKV);
 };
 
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int n = 8;
-  __device__ __forceinline__ static void load(const __nv_bfloat16* src,
-                                              float* dst) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(src);
-    const __nv_bfloat162* pair = reinterpret_cast<const __nv_bfloat162*>(&raw);
+template <int D>
+__global__ void __launch_bounds__(kThreadsBf16) flash_bf16_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+    int s, int h, int h_kv, int causal, int kv_len, float scale_log2) {
+  using L = Bf16Smem<D>;
+  constexpr int kStride = L::kStride;
+  constexpr int kNB = kKeys / 8;   // n-blocks of 8 keys in a score tile
+  constexpr int kKD = D / 16;      // k-steps over d
+  constexpr int kND = D / 8;       // n-blocks of 8 columns of O
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* ks = qs + L::kQ;                  // kStagesBf16 slots
+  __nv_bfloat16* vs = ks + kStagesBf16 * L::kKV;   // kStagesBf16 slots
+
+  // blocks are issued in order of their linear index: the heaviest causal
+  // tiles of every (sequence, head) first
+  const int lin = blockIdx.y * gridDim.x + blockIdx.x;
+  const int qt = gridDim.x - 1 - lin / gridDim.y;
+  const int b = lin % gridDim.y / h;
+  const int hq = lin % gridDim.y % h;
+  const int hk = hq / (h / h_kv);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int q0 = qt * kRowsBf16;
+  const int kv_end = causal ? min(kv_len, q0 + kRowsBf16) : kv_len;
+  const int n_tiles = (kv_end + kKeys - 1) / kKeys;
+
+  const size_t q_stride = static_cast<size_t>(h) * D;
+  const size_t kv_stride = static_cast<size_t>(h_kv) * D;
+  const __nv_bfloat16* q_base = q + static_cast<size_t>(b) * s * q_stride +
+                                static_cast<size_t>(hq) * D;
+  const __nv_bfloat16* k_base = k + static_cast<size_t>(b) * s * kv_stride +
+                                static_cast<size_t>(hk) * D;
+  const __nv_bfloat16* v_base = v + static_cast<size_t>(b) * s * kv_stride +
+                                static_cast<size_t>(hk) * D;
+  const char* q_src = reinterpret_cast<const char*>(q_base);
+  const char* k_src = reinterpret_cast<const char*>(k_base);
+  const char* v_src = reinterpret_cast<const char*>(v_base);
+  constexpr int kSmemRow = kStride * 2;
+  const TileCopy<kThreadsBf16, kKeys, D * 2> copy_kv;
+  const auto load_kv = [&](int tile) {
+    const int slot = tile % kStagesBf16;
+    copy_kv(reinterpret_cast<char*>(ks + slot * L::kKV), kSmemRow, k_src,
+            kv_stride * 2, tile * kKeys, kv_end);
+    copy_kv(reinterpret_cast<char*>(vs + slot * L::kKV), kSmemRow, v_src,
+            kv_stride * 2, tile * kKeys, kv_end);
+  };
+
+  // the Q tile rides in the first copy group; every stage commits a group,
+  // empty or not, so the waits below count the same in every block
+  TileCopy<kThreadsBf16, kRowsBf16, D * 2>()(reinterpret_cast<char*>(qs),
+                                             kSmemRow, q_src, q_stride * 2,
+                                             q0, s);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(pair[i]);
-      dst[2 * i] = f.x;
-      dst[2 * i + 1] = f.y;
+  for (int st = 0; st < kStagesBf16 - 1; ++st) {
+    if (st < n_tiles) load_kv(st);
+    cp_async_commit();
+  }
+
+  // lane roles in the m16n8k16 fragments: this thread holds rows g and
+  // g + 8 of the warp's 16, keys / columns 2t and 2t + 1 of each 8
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int wrow = q0 + warp * 16;   // the warp's first row
+  const int row0 = wrow + g;
+  const int row1 = row0 + 8;
+
+  uint32_t qf[kKD][4];
+  float o[kND][4];
+#pragma unroll
+  for (int i = 0; i < kND; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};   // running max of raw scores
+  float l[2] = {0.f, 0.f};               // this thread's share of the sums
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    cp_async_wait<kStagesBf16 - 2>();
+    __syncthreads();   // tile ready; every warp done with the slot refilled
+    if (tile == 0) {
+      const __nv_bfloat16* qw = qs + (warp * 16 + lane % 16) * kStride +
+                                (lane / 16) * 8;
+#pragma unroll
+      for (int kk = 0; kk < kKD; ++kk) ldmatrix_x4(qf[kk], qw + kk * 16);
+    }
+    if (tile + kStagesBf16 - 1 < n_tiles) load_kv(tile + kStagesBf16 - 1);
+    cp_async_commit();
+    const __nv_bfloat16* kt = ks + (tile % kStagesBf16) * L::kKV;
+    const __nv_bfloat16* vt = vs + (tile % kStagesBf16) * L::kKV;
+
+    // S = Q K^T for this warp's 16 rows x 64 keys
+    float sc[kNB][4];
+#pragma unroll
+    for (int nb = 0; nb < kNB; ++nb) {
+      sc[nb][0] = sc[nb][1] = sc[nb][2] = sc[nb][3] = 0.f;
+    }
+    {
+      const int mi = lane / 8;
+      const __nv_bfloat16* kp = kt + ((mi / 2) * 8 + lane % 8) * kStride +
+                                (mi % 2) * 8;
+#pragma unroll
+      for (int kk = 0; kk < kKD; ++kk) {
+#pragma unroll
+        for (int p = 0; p < kNB / 2; ++p) {
+          uint32_t bf[4];
+          ldmatrix_x4(bf, kp + p * 16 * kStride + kk * 16);
+          mma_bf16(sc[2 * p], qf[kk], bf[0], bf[1]);
+          mma_bf16(sc[2 * p + 1], qf[kk], bf[2], bf[3]);
+        }
+      }
+    }
+    const int k0 = tile * kKeys;
+    // only a tile that holds the warp's causal diagonal or the ragged key
+    // end is masked
+    if (k0 + kKeys > kv_end || (causal && k0 + kKeys - 1 > wrow)) {
+#pragma unroll
+      for (int nb = 0; nb < kNB; ++nb) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = k0 + nb * 8 + 2 * t + e;
+          const bool live = key < kv_end;
+          if (!live || (causal && key > row0)) sc[nb][e] = -INFINITY;
+          if (!live || (causal && key > row1)) sc[nb][2 + e] = -INFINITY;
+        }
+      }
+    }
+    // online softmax on the fragments: row g (c0, c1), row g + 8 (c2, c3)
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int nb = 0; nb < kNB; ++nb) {
+      mx[0] = fmaxf(mx[0], fmaxf(sc[nb][0], sc[nb][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(sc[nb][2], sc[nb][3]));
+    }
+    float base[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      // a row with nothing visible yet keeps a finite base: its p are 0
+      base[r] = mx[r] == -INFINITY ? 0.f : mx[r] * scale_log2;
+      const float corr = exp2_p(m[r] * scale_log2 - base[r]);   // 0 at -inf
+      m[r] = mx[r];
+      l[r] *= corr;
+#pragma unroll
+      for (int i = 0; i < kND; ++i) {
+        o[i][2 * r] *= corr;
+        o[i][2 * r + 1] *= corr;
+      }
+    }
+    // P as A fragments of 16 keys each
+    uint32_t pf[kKeys / 16][4];
+#pragma unroll
+    for (int nb = 0; nb < kNB; ++nb) {
+      const float p0 = exp2_p(fmaf(sc[nb][0], scale_log2, -base[0]));
+      const float p1 = exp2_p(fmaf(sc[nb][1], scale_log2, -base[0]));
+      const float p2 = exp2_p(fmaf(sc[nb][2], scale_log2, -base[1]));
+      const float p3 = exp2_p(fmaf(sc[nb][3], scale_log2, -base[1]));
+      l[0] += p0 + p1;
+      l[1] += p2 + p3;
+      pf[nb / 2][(nb % 2) * 2] = pack_bf16(p0, p1);
+      pf[nb / 2][(nb % 2) * 2 + 1] = pack_bf16(p2, p3);
+    }
+    // O += P V
+    {
+      const int mi = lane / 8;
+      const __nv_bfloat16* vp = vt + ((mi % 2) * 8 + lane % 8) * kStride +
+                                (mi / 2) * 8;
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk) {
+#pragma unroll
+        for (int p = 0; p < kND / 2; ++p) {
+          uint32_t bf[4];
+          ldmatrix_x4_trans(bf, vp + kk * 16 * kStride + p * 16);
+          mma_bf16(o[2 * p], pf[kk], bf[0], bf[1]);
+          mma_bf16(o[2 * p + 1], pf[kk], bf[2], bf[3]);
+        }
+      }
+    }
+  }
+
+  // epilogue: O / l, rounded once, staged through this warp's rows of the
+  // Q tile (only this warp read them), then 16-byte stores
+  cp_async_wait<0>();   // the Q copy, when no tile waited for it
+  __syncthreads();
+  __nv_bfloat16* stage = qs + warp * 16 * kStride;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float sum = l[r];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const float inv = sum > 0.f ? 1.f / sum : 0.f;
+#pragma unroll
+    for (int i = 0; i < kND; ++i) {
+      *reinterpret_cast<uint32_t*>(stage + (g + 8 * r) * kStride + i * 8 +
+                                   2 * t) =
+          pack_bf16(o[i][2 * r] * inv, o[i][2 * r + 1] * inv);
+    }
+  }
+  __syncwarp();
+  constexpr int kChunks = D / 8;   // 16-byte chunks per row
+  for (int i = lane; i < 16 * kChunks; i += 32) {
+    const int r = i / kChunks;
+    const int c = i % kChunks;
+    const int qpos = wrow + r;
+    if (qpos < s) {
+      *reinterpret_cast<uint4*>(out + (static_cast<size_t>(b) * s + qpos) *
+                                          q_stride +
+                                static_cast<size_t>(hq) * D + c * 8) =
+          *reinterpret_cast<const uint4*>(stage + r * kStride + c * 8);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32: register-tiled micro-GEMM on the FMA units
+// ---------------------------------------------------------------------------
+
+constexpr int kThreadsF32 = 256;
+constexpr int kRowsF32 = 64;           // query rows per block
+constexpr int kPStride = kKeys + 16;   // floats per row of P
+
+template <int D>
+struct F32Smem {
+  static constexpr int kStride = D + 4;            // Q and K rows (floats)
+  static constexpr int kQK = kRowsF32 * kStride;      // floats per Q/K tile
+  static constexpr int kV = kKeys * D;             // floats per V tile
+  static constexpr int kP = kRowsF32 * kPStride;
+  static constexpr size_t kBytes =
+      sizeof(float) * (3 * static_cast<size_t>(kQK) + 2 * kV + kP);
+};
+
+// Thread c's D/16 columns of a row of V or O (c = 0..15): float4s at
+// 4c + 64j for D >= 64, a float2 at 2c for D = 32, one float at c for
+// D = 16 -- 16 threads read or write a row's consecutive bytes.
+template <int D>
+struct Cols {
+  static constexpr int n = D / 16;
+  __device__ __forceinline__ static void load(const float* row, int c,
+                                              float (&x)[n]) {
+    if constexpr (D >= 64) {
+#pragma unroll
+      for (int j = 0; j < n / 4; ++j) {
+        const float4 f = *reinterpret_cast<const float4*>(row + 4 * c +
+                                                          64 * j);
+        x[4 * j] = f.x;
+        x[4 * j + 1] = f.y;
+        x[4 * j + 2] = f.z;
+        x[4 * j + 3] = f.w;
+      }
+    } else if constexpr (D == 32) {
+      const float2 f = *reinterpret_cast<const float2*>(row + 2 * c);
+      x[0] = f.x;
+      x[1] = f.y;
+    } else {
+      x[0] = row[c];
+    }
+  }
+  __device__ __forceinline__ static void store(float* row, int c,
+                                               const float (&x)[n],
+                                               float scale) {
+    if constexpr (D >= 64) {
+#pragma unroll
+      for (int j = 0; j < n / 4; ++j) {
+        *reinterpret_cast<float4*>(row + 4 * c + 64 * j) =
+            make_float4(x[4 * j] * scale, x[4 * j + 1] * scale,
+                        x[4 * j + 2] * scale, x[4 * j + 3] * scale);
+      }
+    } else if constexpr (D == 32) {
+      *reinterpret_cast<float2*>(row + 2 * c) =
+          make_float2(x[0] * scale, x[1] * scale);
+    } else {
+      row[c] = x[0] * scale;
     }
   }
 };
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ out, int s, int h, int h_kv,
-    int causal, int kv_len, float scale_log2) {
-  constexpr int kChunks = D / 4 / kLanes;   // float4 chunks a thread holds
-  constexpr int kVec = Vec<T>::n;
-  constexpr int kPerRow = D / kVec;         // 16-byte loads per K/V row
-  __shared__ float4 ks[kKeys][D / 4];
-  __shared__ float4 vs[kKeys][D / 4];
+template <int D>
+__global__ void __launch_bounds__(kThreadsF32) flash_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ out, int s, int h,
+    int h_kv, int causal, int kv_len, float scale_log2) {
+  using L = F32Smem<D>;
+  using C = Cols<D>;
+  constexpr int kStride = L::kStride;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* qs = reinterpret_cast<float*>(smem_raw);
+  float* ks = qs + L::kQK;          // two slots
+  float* vs = ks + 2 * L::kQK;      // two slots
+  float* ps = vs + 2 * L::kV;
 
-  const int qt = gridDim.x - 1 - blockIdx.x;   // heaviest causal tile first
+  const int qt = gridDim.x - 1 - blockIdx.x;
   const int b = blockIdx.y / h;
   const int hq = blockIdx.y % h;
   const int hk = hq / (h / h_kv);
-  const int tid = threadIdx.x;
-  const int lane = tid % kLanes;
-  const int qpos = qt * kRows + tid / kLanes;
-  const bool live = qpos < s;
+  const int lane = threadIdx.x % 32;
+  const int rg = (threadIdx.x / 32) * 2 + lane / 16;   // rows rg + 16i
+  const int kg = lane % 16;                            // keys kg + 16j
+  const int q0 = qt * kRowsF32;
+  const int kv_end = causal ? min(kv_len, q0 + kRowsF32) : kv_len;
+  const int n_tiles = (kv_end + kKeys - 1) / kKeys;
 
-  // this thread's chunks of its query row: float4 chunk c*kLanes + lane
-  float4 qr[kChunks];
-  float4 acc[kChunks];
-  const size_t q_row = ((static_cast<size_t>(b) * s + qpos) * h + hq) * D;
+  const size_t q_stride = static_cast<size_t>(h) * D;
+  const size_t kv_stride = static_cast<size_t>(h_kv) * D;
+  const float* q_base = q + static_cast<size_t>(b) * s * q_stride +
+                        static_cast<size_t>(hq) * D;
+  const float* k_base = k + static_cast<size_t>(b) * s * kv_stride +
+                        static_cast<size_t>(hk) * D;
+  const float* v_base = v + static_cast<size_t>(b) * s * kv_stride +
+                        static_cast<size_t>(hk) * D;
+  constexpr int kRowBytes = D * 4;
+  const TileCopy<kThreadsF32, kKeys, kRowBytes> copy_kv;
+  const auto load_kv = [&](int tile) {
+    const int slot = tile % 2;
+    copy_kv(reinterpret_cast<char*>(ks + slot * L::kQK), kStride * 4,
+            reinterpret_cast<const char*>(k_base), kv_stride * 4,
+            tile * kKeys, kv_end);
+    copy_kv(reinterpret_cast<char*>(vs + slot * L::kV), kRowBytes,
+            reinterpret_cast<const char*>(v_base), kv_stride * 4,
+            tile * kKeys, kv_end);
+  };
+
+  TileCopy<kThreadsF32, kRowsF32, kRowBytes>()(
+      reinterpret_cast<char*>(qs), kStride * 4,
+      reinterpret_cast<const char*>(q_base), q_stride * 4, q0, s);
+  if (n_tiles > 0) load_kv(0);
+  cp_async_commit();
+
+  float o[4][C::n];
 #pragma unroll
-  for (int c = 0; c < kChunks; ++c) {
-    const int col = (c * kLanes + lane) * 4;
-    float x[4] = {0.f, 0.f, 0.f, 0.f};
-    if (live) {
+  for (int i = 0; i < 4; ++i) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) x[e] = to_float(q[q_row + col + e]);
-    }
-    qr[c] = make_float4(x[0], x[1], x[2], x[3]);
-    acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int j = 0; j < C::n; ++j) o[i][j] = 0.f;
+  }
+  float m[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
   }
 
-  float m = -INFINITY;
-  float l = 0.f;
-  // keys past the block's last row are masked for all of its rows
-  const int kv_end = causal ? min(kv_len, (qt + 1) * kRows) : kv_len;
-  for (int k0 = 0; k0 < kv_end; k0 += kKeys) {
-    for (int i = tid; i < kKeys * kPerRow; i += kThreads) {
-      const int r = i / kPerRow;
-      const int col = (i % kPerRow) * kVec;
-      float kf[kVec], vf[kVec];
-      if (k0 + r < kv_end) {
-        const size_t off =
-            ((static_cast<size_t>(b) * s + k0 + r) * h_kv + hk) * D + col;
-        Vec<T>::load(k + off, kf);
-        Vec<T>::load(v + off, vf);
-      } else {
-#pragma unroll
-        for (int e = 0; e < kVec; ++e) kf[e] = vf[e] = 0.f;
-      }
-      float* kd = reinterpret_cast<float*>(&ks[r][0]) + col;
-      float* vd = reinterpret_cast<float*>(&vs[r][0]) + col;
-#pragma unroll
-      for (int e = 0; e < kVec; ++e) {
-        kd[e] = kf[e];
-        vd[e] = vf[e];
-      }
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    cp_async_wait<0>();
+    __syncthreads();   // tile ready; everyone done with the other slot and P
+    if (tile + 1 < n_tiles) {
+      load_kv(tile + 1);
+      cp_async_commit();
     }
-    __syncthreads();
+    const float* kt = ks + (tile % 2) * L::kQK;
+    const float* vt = vs + (tile % 2) * L::kV;
+    const int k0 = tile * kKeys;
 
-    float sc[kKeys];
+    float sc[4][4];
 #pragma unroll
-    for (int j = 0; j < kKeys; ++j) {
-      float dot = 0.f;
+    for (int i = 0; i < 4; ++i) {
 #pragma unroll
-      for (int c = 0; c < kChunks; ++c) {
-        const float4 kk = ks[j][c * kLanes + lane];
-        dot += qr[c].x * kk.x + qr[c].y * kk.y + qr[c].z * kk.z +
-               qr[c].w * kk.w;
-      }
-      sc[j] = dot;
+      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
     }
-    float tile_max = -INFINITY;
+#pragma unroll 4
+    for (int d = 0; d < D; d += 4) {
+      float4 qv[4], kv[4];
 #pragma unroll
-    for (int j = 0; j < kKeys; ++j) {
-      sc[j] += __shfl_xor_sync(0xffffffffu, sc[j], 1);
-      sc[j] += __shfl_xor_sync(0xffffffffu, sc[j], 2);
-      const int kp = k0 + j;
-      const bool visible = kp < kv_end && (!causal || kp <= qpos);
-      sc[j] = visible ? sc[j] * scale_log2 : -INFINITY;
-      tile_max = fmaxf(tile_max, sc[j]);
-    }
-    const float m_new = fmaxf(m, tile_max);
-    if (m_new != -INFINITY) {               // the row has a visible key
-      const float corr = exp2f(m - m_new);  // 0 on the first visible tile
-      float psum = 0.f;
-#pragma unroll
-      for (int c = 0; c < kChunks; ++c) {
-        acc[c].x *= corr;
-        acc[c].y *= corr;
-        acc[c].z *= corr;
-        acc[c].w *= corr;
+      for (int i = 0; i < 4; ++i) {
+        qv[i] = *reinterpret_cast<const float4*>(qs + (rg + 16 * i) * kStride +
+                                                 d);
+        kv[i] = *reinterpret_cast<const float4*>(kt + (kg + 16 * i) * kStride +
+                                                 d);
       }
 #pragma unroll
-      for (int j = 0; j < kKeys; ++j) {
-        const float p = exp2f(sc[j] - m_new);
-        psum += p;
+      for (int i = 0; i < 4; ++i) {
 #pragma unroll
-        for (int c = 0; c < kChunks; ++c) {
-          const float4 vv = vs[j][c * kLanes + lane];
-          acc[c].x += p * vv.x;
-          acc[c].y += p * vv.y;
-          acc[c].z += p * vv.z;
-          acc[c].w += p * vv.w;
+        for (int j = 0; j < 4; ++j) {
+          sc[i][j] = fmaf(qv[i].x, kv[j].x, sc[i][j]);
+          sc[i][j] = fmaf(qv[i].y, kv[j].y, sc[i][j]);
+          sc[i][j] = fmaf(qv[i].z, kv[j].z, sc[i][j]);
+          sc[i][j] = fmaf(qv[i].w, kv[j].w, sc[i][j]);
         }
       }
-      l = l * corr + psum;
-      m = m_new;
     }
-    __syncthreads();
-  }
-
-  if (!live) return;
-  const float inv = l > 0.f ? 1.f / l : 0.f;
+    if (tile == n_tiles - 1) {   // causal diagonal and ragged key end
 #pragma unroll
-  for (int c = 0; c < kChunks; ++c) {
-    const int col = (c * kLanes + lane) * 4;
-    T* dst = out + q_row + col;
-    store(acc[c].x * inv, dst);
-    store(acc[c].y * inv, dst + 1);
-    store(acc[c].z * inv, dst + 2);
-    store(acc[c].w * inv, dst + 3);
+      for (int i = 0; i < 4; ++i) {
+        const int row = q0 + rg + 16 * i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int key = k0 + kg + 16 * j;
+          if (key >= kv_end || (causal && key > row)) sc[i][j] = -INFINITY;
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = fmaxf(fmaxf(sc[i][0], sc[i][1]), fmaxf(sc[i][2], sc[i][3]));
+#pragma unroll
+      for (int o_ = 1; o_ < 16; o_ <<= 1) {
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o_));
+      }
+      mx = fmaxf(mx, m[i]);
+      const float base = mx == -INFINITY ? 0.f : mx * scale_log2;
+      const float corr = exp2f(m[i] * scale_log2 - base);
+      m[i] = mx;
+      l[i] *= corr;
+#pragma unroll
+      for (int j = 0; j < C::n; ++j) o[i][j] *= corr;
+      float* prow = ps + (rg + 16 * i) * kPStride + kg;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = exp2f(fmaf(sc[i][j], scale_log2, -base));
+        l[i] += p;
+        prow[16 * j] = p;
+      }
+    }
+    __syncthreads();   // P complete
+
+#pragma unroll 2
+    for (int key = 0; key < kKeys; key += 4) {
+      float4 pv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        pv[i] = *reinterpret_cast<const float4*>(
+            ps + (rg + 16 * i) * kPStride + key);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        float vc[C::n];
+        C::load(vt + (key + u) * D, kg, vc);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float p = u == 0 ? pv[i].x
+                          : u == 1 ? pv[i].y
+                          : u == 2 ? pv[i].z
+                                   : pv[i].w;
+#pragma unroll
+          for (int j = 0; j < C::n; ++j) o[i][j] = fmaf(p, vc[j], o[i][j]);
+        }
+      }
+    }
+  }
+  if (n_tiles == 0) cp_async_wait<0>();   // the Q copy
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float li = l[i];
+#pragma unroll
+    for (int o_ = 1; o_ < 16; o_ <<= 1) {
+      li += __shfl_xor_sync(0xffffffffu, li, o_);
+    }
+    const float inv = li > 0.f ? 1.f / li : 0.f;
+    const int qpos = q0 + rg + 16 * i;
+    if (qpos >= s) continue;
+    C::store(out + (static_cast<size_t>(b) * s + qpos) * q_stride +
+                 static_cast<size_t>(hq) * D,
+             kg, o[i], inv);
   }
 }
+
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* out, int b,
            int s, int h, int h_kv, int causal, int kv_len,
            cudaStream_t stream) {
-  const dim3 grid((s + kRows - 1) / kRows, b * h);
   const double log2e = 1.4426950408889634;
   const float scale_log2 =
       static_cast<float>(log2e / sqrt(static_cast<double>(D)));
-  flash_kernel<T, D><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), s, h, h_kv, causal,
-      kv_len, scale_log2);
+  if constexpr (sizeof(T) == 2) {
+    const dim3 grid((s + kRowsBf16 - 1) / kRowsBf16, b * h);
+    const size_t bytes = Bf16Smem<D>::kBytes;
+    const int err = allow_smem(flash_bf16_kernel<D>, bytes);
+    if (err != 0) return err;
+    flash_bf16_kernel<D><<<grid, kThreadsBf16, bytes, stream>>>(
+        static_cast<const __nv_bfloat16*>(q),
+        static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v),
+        static_cast<__nv_bfloat16*>(out), s, h, h_kv, causal, kv_len,
+        scale_log2);
+  } else {
+    const dim3 grid((s + kRowsF32 - 1) / kRowsF32, b * h);
+    const size_t bytes = F32Smem<D>::kBytes;
+    const int err = allow_smem(flash_f32_kernel<D>, bytes);
+    if (err != 0) return err;
+    flash_f32_kernel<D><<<grid, kThreadsF32, bytes, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(out), s, h, h_kv,
+        causal, kv_len, scale_log2);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -56,7 +56,7 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
            const void* tables, const void* lengths, void* out, int b,
            int h_kv, int g_n, int page, int max_pages, cudaStream_t stream) {
   const size_t smem = decode_tile::smem_bytes<D>(g_n);
-  const int err = decode_tile::allow_smem(paged_decode_kernel<T, D>, smem);
+  const int err = allow_smem(paged_decode_kernel<T, D>, smem);
   if (err != 0) return err;
   paged_decode_kernel<T, D><<<dim3(b, h_kv), kTile, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pages),

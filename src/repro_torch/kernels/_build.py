@@ -9,6 +9,9 @@ already built, a changed one rebuilds.
 
 The sources expose a plain C interface (pointers, ints, the stream), so
 no PyTorch header is compiled and a build takes seconds.
+
+    python -m repro_torch.kernels._build --ptxas   # each kernel's registers,
+                                                   # shared memory, spills
 """
 
 from __future__ import annotations
@@ -51,6 +54,38 @@ def source_hash() -> str:
     return h.hexdigest()
 
 
+def _compile_all(out_dir: Path, extra: tuple[str, ...] = ()) -> tuple[
+        list[Path], list[tuple[Path, str]], list[str]]:
+    """One ``nvcc -c`` per source, all started together.  Returns the
+    objects, each source's compiler output, and the failures."""
+    nvcc = nvcc_path()
+    objs, procs = [], []
+    for src in sources():
+        obj = out_dir / (src.stem + ".o")
+        objs.append(obj)
+        procs.append((src, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, *extra, "-c", str(src), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    outputs, failed = [], []
+    for src, proc in procs:
+        out, _ = proc.communicate()
+        outputs.append((src, out))
+        if proc.returncode != 0:
+            failed.append(f"{src.name}:\n{out}")
+    return objs, outputs, failed
+
+
+def ptxas_report(build_dir: Path = BUILD_DIR) -> str:
+    """What ``ptxas -v`` says of every kernel (registers, shared memory,
+    spill stores and loads), each source compiled again beside the build."""
+    out_dir = build_dir / "ptxas"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    _, outputs, failed = _compile_all(out_dir, ("-Xptxas", "-v"))
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return "\n".join(f"== {src.name}\n{out}" for src, out in outputs)
+
+
 def build(build_dir: Path = BUILD_DIR) -> Path:
     """Compile every source in parallel and link the shared library.
     Raises ``RuntimeError`` with the compiler's output when any step
@@ -61,24 +96,13 @@ def build(build_dir: Path = BUILD_DIR) -> Path:
     digest = source_hash()
     if lib.exists() and stamp.exists() and stamp.read_text() == digest:
         return lib
-    nvcc = nvcc_path()
-    objs, procs = [], []
-    for src in sources():
-        obj = build_dir / (src.stem + ".o")
-        objs.append(obj)
-        procs.append((src, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    failed = []
-    for src, proc in procs:
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"{src.name}:\n{out}")
+    objs, _, failed = _compile_all(build_dir)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     tmp = build_dir / (LIB_NAME + ".tmp")
-    link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
-                           *map(str, objs)], capture_output=True, text=True)
+    link = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-shared", "-o",
+                           str(tmp), *map(str, objs)],
+                          capture_output=True, text=True)
     if link.returncode != 0:
         raise RuntimeError("nvcc link failed:\n" + link.stdout + link.stderr)
     os.replace(tmp, lib)
@@ -112,3 +136,10 @@ def check(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {err}")
+
+
+if __name__ == "__main__":
+    import sys
+    if sys.argv[1:] != ["--ptxas"]:
+        sys.exit("usage: python -m repro_torch.kernels._build --ptxas")
+    print(ptxas_report())

@@ -10,6 +10,11 @@ A CUDA tensor launches ``csrc/decode_attention.cu`` (or the wrapper
 raises on a dtype, shape or layout the kernel does not take); a CPU
 tensor goes to the plain version, ``ref.decode_attention_ref``.
 ``decode_attention.launches`` counts kernel launches.
+
+The kernel splits the sequence over ``n_split`` blocks per (b, kv head)
+and merges their partials in a second pass.  :func:`split_plan` picks the
+split from B, H_kv and S alone: the lengths live on the device, and
+reading them would stall the host in every layer of every step.
 """
 
 from __future__ import annotations
@@ -22,12 +27,35 @@ from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 _ENTRY = {torch.float32: "decode_attention_f32",
           torch.bfloat16: "decode_attention_bf16"}
 HEAD_DIMS = (16, 32, 64, 128)      # head widths the kernel is built for
+TILE_BYTES = 8192                  # K rows (and V rows) a tile copies
+TARGET_BLOCKS = 264                # two blocks for each of the H100's 132 SMs
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def tile_positions(d: int, itemsize: int) -> int:
+    """Positions in one of the kernel's tiles: 8 KB of K rows."""
+    return TILE_BYTES // (d * itemsize)
+
+
+def split_plan(b: int, h_kv: int, s: int, tile: int) -> tuple[int, int]:
+    """(n_split, chunk): split i covers positions [i*chunk, (i+1)*chunk).
+
+    Enough splits for about TARGET_BLOCKS blocks, each a whole number of
+    tiles (at least one), and no split starting at or past S, so the
+    splits cover [0, S) exactly once."""
+    n = max(1, min(_cdiv(TARGET_BLOCKS, max(1, b * h_kv)), _cdiv(s, tile)))
+    chunk = max(1, _cdiv(_cdiv(s, n), tile)) * tile
+    return max(1, _cdiv(s, chunk)), chunk
 
 
 def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                           v_cache: torch.Tensor,
                           cache_len: torch.Tensor) -> torch.Tensor:
-    """Launch the kernel.  q: (B, H_kv, G, D); caches: (B, S, H_kv, D);
+    """Launch the kernel (its split pass, then its merge pass when the
+    sequence is split).  q: (B, H_kv, G, D); caches: (B, S, H_kv, D);
     cache_len: (B,) int32 -> (B, H_kv, G, D)."""
     b, h_kv, g, d = q.shape
     s = k_cache.shape[1]
@@ -57,9 +85,17 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError("decode_attention reads K/V rows in 16-byte loads: "
                          "the caches must be 16-byte aligned")
     out = torch.empty_like(q)
-    fn = _build.function(_ENTRY[q.dtype], 5, 5)
+    n_split, chunk = split_plan(b, h_kv, s,
+                                tile_positions(d, q.element_size()))
+    # each split's (acc[G, D], m, l) in f32, merged by the second pass
+    scratch = (torch.empty(b * h_kv * n_split * g * (d + 2),
+                           dtype=torch.float32, device=q.device)
+               if n_split > 1 else None)
+    fn = _build.function(_ENTRY[q.dtype], 6, 7)
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-             cache_len.data_ptr(), out.data_ptr(), b, s, h_kv, g, d,
+             cache_len.data_ptr(), out.data_ptr(),
+             None if scratch is None else scratch.data_ptr(), b, s, h_kv, g,
+             d, n_split, chunk,
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(_ENTRY[q.dtype], err)
     decode_attention.launches += 1

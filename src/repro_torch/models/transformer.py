@@ -33,6 +33,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch import resolve_device
 from repro_torch.kernels.paged_attention.ref import engine_ref_attn
 from repro_torch.models import common as cm
 
@@ -348,7 +349,10 @@ def check_ids(tokens, cfg: TransformerConfig) -> None:
 # so the port computes the valid rows first and writes only those.
 
 def make_cache(cfg: TransformerConfig, batch: int, s_max: int,
-               dtype=torch.bfloat16, device=None) -> dict:
+               dtype=torch.bfloat16, device="cuda") -> dict:
+    """Zeroed dense cache on ``device`` (the GPU unless ``"cpu"`` is
+    asked for; raises without one)."""
+    device = resolve_device(device)
     shape = (cfg.n_layers, batch, s_max, cfg.n_kv_heads, cfg.d_head)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -508,7 +512,10 @@ def chunk_extend(params: TransformerParams, cache: dict, slot: int,
 # so the port computes the valid rows first and writes only those.
 
 def make_paged_cache(cfg: TransformerConfig, n_pages: int, page_size: int,
-                     dtype=torch.bfloat16, device=None) -> dict:
+                     dtype=torch.bfloat16, device="cuda") -> dict:
+    """Zeroed page pool on ``device`` (the GPU unless ``"cpu"`` is asked
+    for; raises without one)."""
+    device = resolve_device(device)
     shape = (cfg.n_layers, n_pages, page_size, cfg.n_kv_heads, cfg.d_head)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}

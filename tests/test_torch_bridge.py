@@ -197,3 +197,18 @@ def test_entry_points_refuse_a_missing_gpu():
                  lambda: IVFPQBackend(np.zeros((4, 2), np.float32))):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
+    # the cache constructors: the GPU by default, the JAX-shaped zeroed
+    # cache when the CPU is asked for
+    cfg = tr.TransformerConfig(name="c", n_layers=2, d_model=32, n_heads=4,
+                               n_kv_heads=2, d_head=8, d_ff=64, vocab_size=64)
+    jcfg = jtr.TransformerConfig(**dataclasses.asdict(cfg))
+    for make, jmake, args in ((tr.make_cache, jtr.make_cache, (3, 16)),
+                              (tr.make_paged_cache, jtr.make_paged_cache,
+                               (5, 4))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make(cfg, *args)
+        got, want = make(cfg, *args, device="cpu"), jmake(jcfg, *args)
+        for k in ("k", "v"):
+            assert got[k].device.type == "cpu"
+            assert tuple(got[k].shape) == want[k].shape
+            assert got[k].dtype == torch.bfloat16 and not got[k].any()

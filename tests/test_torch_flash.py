@@ -210,7 +210,7 @@ def test_sliding_window_has_no_flash_path():
 # ---------------------------------------------------------------------------
 
 #: (B, S, H, H_kv, D, kv_len): ragged S against the kernel's 64-row and
-#: 32-key tiles, GQA ratios, every head width, and a kv_len mask
+#: 64-key tiles, GQA ratios, every head width, and a kv_len mask
 CUDA_CASES = {
     "prefill": (1, 1024, 32, 8, 64, None),
     "encoder": (4, 256, 12, 12, 64, None),
