@@ -19,9 +19,10 @@ during decode.  Phases, each printed as one JSON line, in order:
   build        nvcc build of ``src/repro_torch/csrc/*.cu`` (seconds)
   setup        model weights, corpus encode, IVF-PQ index, two engines
   kernels      each kernel vs its plain version at its path's shapes,
-               timed warm in L2 (flash and dense decode also cold, dense
-               decode also at greedy generation's B=1 shape, with its
-               split); flash also at a few edges (ragged S, kv_len < S,
+               timed warm in L2 (the attention kernels also cold); paged
+               decode at serve's and serve_plan's shapes and dense decode
+               also at greedy generation's B=1 shape, each with its
+               split; flash also at a few edges (ragged S, kv_len < S,
                D=128)
   serve        16 Poisson-arriving questions through the paged engine;
                every kernel's launch count over this phase alone
@@ -221,68 +222,111 @@ def phase_setup():
     return engine, dense, questions
 
 
-def check_paged_attention() -> dict:
-    """Kernel vs plain version at the main path's widths (B=8, H_kv=8, G=4,
-    D=64, page=16, M=64), bf16 and f32, over lengths 0, 1, a non-multiple
-    of the page, M*page + 1 and two rows that share physical pages."""
+#: the paged kernel's shapes on the main path, (B, H_kv, G, D, page, M,
+#: lengths, two rows that share physical pages and their query): serve's
+#: 8 slots of s_max 1,024 over lengths 0, 1, a non-multiple of the page
+#: and M*page + 1 (clamps); serve_plan's 128 slots of s_max 768, 8 live
+#: rows at 300-768 in the slots the pool hands out first (the highest)
+#: beside 120 idle slots that attend over one row (the step writes every
+#: slot at pos + 1)
+PAGED_SHAPES = {
+    "serve": (8, 8, 4, 64, 16, 64, [0, 1, 537, 1025, 300, 300, 1024, 16],
+              (4, 5)),
+    "serve_plan": (128, 8, 4, 64, 16, 48,
+                   [1] * 120 + [768, 300, 537, 640, 412, 412, 700, 555],
+                   (124, 125)),
+}
+
+
+def paged_inputs(shape, dtype, rng):
+    """q, k_pages, v_pages, tables, lengths on the card for one of
+    PAGED_SHAPES, the pool one page larger than the tables hold."""
     import torch
+    b, h_kv, g, d, page, m, lengths, (i, j) = shape
+    tables = rng.permutation(b * m).reshape(b, m).astype(np.int32)
+    tables[j] = tables[i]
+    q = torch.tensor(rng.standard_normal((b, h_kv, g, d)), dtype=dtype,
+                     device="cuda")
+    q[j] = q[i]
+    k, v = (torch.tensor(rng.standard_normal((b * m + 1, page, h_kv, d)),
+                         dtype=dtype, device="cuda") for _ in range(2))
+    return (q, k, v, torch.tensor(tables, device="cuda"),
+            torch.tensor(lengths, dtype=torch.int32, device="cuda"))
+
+
+def paged_bound(shape, tables) -> tuple[float, str]:
+    """The least time of one bf16 call: each distinct K/V row up to its
+    clamped length once (shared pages count once), q, the used table
+    entries, the lengths and the output; 4*G*D operations a position and
+    kv head."""
+    b, h_kv, g, d, page, m, lengths, _ = shape
+    rows = set()
+    n_ops = 0
+    for bi, length in enumerate(lengths):
+        length = min(length, m * page)
+        rows.update((int(tables[bi, p // page]), p % page)
+                    for p in range(length))
+        n_ops += 4 * length * h_kv * g * d
+    used_pages = sum(-(-min(x, m * page) // page) for x in lengths)
+    n_bytes = (2 * len(rows) * h_kv * d * 2 + 2 * b * h_kv * g * d * 2
+               + 4 * used_pages + 4 * b)
+    return bound(n_bytes, n_ops, "bfloat16")
+
+
+def check_paged_attention() -> dict:
+    """Kernel vs plain version at the main path's two shapes
+    (PAGED_SHAPES), bf16 and f32: within tolerance, exact zeros at length
+    0, bit-equal rows on shared pages; each shape timed warm and cold in
+    L2 in bf16, with the kernel's split plan."""
+    import torch
+    from repro_torch.kernels.decode_attention.ops import tile_positions
     from repro_torch.kernels.paged_attention import ops as pa
     from repro_torch.kernels.paged_attention.ref import (
         paged_decode_attention_dense_ref)
 
-    b, h_kv, g, d, page, m = 8, 8, 4, 64, 16, 64
-    lengths = [0, 1, 537, m * page + 1, 300, 300, m * page, 16]
-    rng = np.random.default_rng(0)
-    n_pool = b * m + 1
-    tables = rng.permutation(b * m).reshape(b, m).astype(np.int32)
-    tables[5] = tables[4]                       # rows 4 and 5 share pages
     out = {"tol_reason": "kernel and plain version both keep f32 softmax "
                          "statistics and round the f32 result once; they "
                          "sum in other orders, so bf16 outputs of order "
                          "one differ by at most about one bf16 step"}
-    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-5)):
-        q = torch.tensor(rng.standard_normal((b, h_kv, g, d)),
-                         dtype=dtype, device="cuda")
-        q[5] = q[4]                             # same query, shared pages
-        k = torch.tensor(rng.standard_normal((n_pool, page, h_kv, d)),
-                         dtype=dtype, device="cuda")
-        v = torch.tensor(rng.standard_normal((n_pool, page, h_kv, d)),
-                         dtype=dtype, device="cuda")
-        tb = torch.tensor(tables, device="cuda")
-        ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
-        got = pa.paged_decode_attention_cuda(q, k, v, tb, ln)
-        want = paged_decode_attention_dense_ref(q, k, v, tb, ln)
-        torch.cuda.synchronize()
-        err = float((got.float() - want.float()).abs().max())
-        if not err <= tol:
-            raise AssertionError(f"paged attention {dtype}: max abs err "
-                                 f"{err} > {tol}")
-        if got[0].any():
-            raise AssertionError("paged attention: length-0 row not zero")
-        if not torch.equal(got[4], got[5]):
-            raise AssertionError("paged attention: shared pages disagree")
-        out[str(dtype).removeprefix("torch.")] = {"max_abs_err": err,
-                                                  "tol": tol}
-        if dtype is torch.bfloat16:
-            ms = device_ms(lambda: pa.paged_decode_attention_cuda(
-                q, k, v, tb, ln))
-            plain_ms = device_ms(lambda: paged_decode_attention_dense_ref(
-                q, k, v, tb, ln))
-            # bytes the work needs: each distinct K/V row once (shared
-            # pages count once), q, the used table entries, lengths, out
-            rows = set()
-            n_ops = 0
-            for bi, length in enumerate(lengths):
-                length = min(length, m * page)
-                rows.update((int(tables[bi, p // page]), p % page)
-                            for p in range(length))
-                n_ops += 4 * length * h_kv * g * d
-            used_pages = sum(-(-min(x, m * page) // page) for x in lengths)
-            n_bytes = (2 * len(rows) * h_kv * d * 2 + 2 * q.numel() * 2
-                       + 4 * used_pages + 4 * b)
-            bound_ms, bound_by = bound(n_bytes, n_ops, "bfloat16")
-            out.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                       bound_by=bound_by, max_abs_err=err)
+    for name, shape in PAGED_SHAPES.items():
+        b, h_kv, g, d, page, m, lengths, (i, j) = shape
+        rng = np.random.default_rng(0)
+        res = {"shape": [b, h_kv, g, d, page, m], "lengths": lengths}
+        for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-5)):
+            args = paged_inputs(shape, dtype, rng)
+            got = pa.paged_decode_attention_cuda(*args)
+            want = paged_decode_attention_dense_ref(*args)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            if not err <= tol:
+                raise AssertionError(f"paged attention {name} {dtype}: max "
+                                     f"abs err {err} > {tol}")
+            if got[args[4] == 0].any():
+                raise AssertionError("paged attention: length-0 row not "
+                                     "zero")
+            if not torch.equal(got[i], got[j]):
+                raise AssertionError("paged attention: shared pages "
+                                     "disagree")
+            res[str(dtype).removeprefix("torch.")] = {"max_abs_err": err,
+                                                      "tol": tol}
+            if dtype is not torch.bfloat16:
+                continue
+            res["ms"] = device_ms(lambda: pa.paged_decode_attention_cuda(
+                *args))
+            res["cold_ms"] = device_ms_cold(
+                lambda: pa.paged_decode_attention_cuda(*args))
+            res["plain_ms"] = device_ms(
+                lambda: paged_decode_attention_dense_ref(*args))
+            res["bound_ms"], res["bound_by"] = paged_bound(
+                shape, args[3].cpu().numpy())
+            res["max_abs_err"] = err
+            res["n_split_chunk"] = pa.split_plan(m * page,
+                                                 tile_positions(d, 2))
+        out[name] = res
+    # the kernels line reports serve's shape
+    out.update({key: out["serve"][key] for key in
+                ("ms", "plain_ms", "bound_ms", "bound_by")},
+               max_abs_err=max(out[n]["max_abs_err"] for n in PAGED_SHAPES))
     return out
 
 

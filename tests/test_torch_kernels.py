@@ -21,7 +21,12 @@ plain versions.
   mode; ``ivf_pq.pq_scan_ref`` reduces in XLA's order (``1e-5``).
 
 Tests marked ``cuda`` need a card and skip without one; run them on a
-GPU with ``python -m pytest -m cuda tests/test_torch_kernels.py``.
+GPU with ``python -m pytest -m cuda tests/test_torch_kernels.py``.  They
+hold the paged kernel to its plain version on the cases above, at the
+edges of its split of the sequence (``test_paged_kernel_split_edges``)
+and at serve_plan's 128-slot shape, each call under
+``torch.cuda.set_sync_debug_mode("error")`` (the wrapper plans the split
+without reading the lengths).
 """
 
 import jax
@@ -334,6 +339,65 @@ def test_paged_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="head dim"):
         pa.paged_decode_attention_cuda(
             *(x[..., :8].contiguous() for x in (q, k, v)), t, ln)
+
+
+def _check_paged(arrs, dt, device, share):
+    """One wrapper call under sync debug mode against the plain version;
+    rows ``share`` = (i, j) get the same pages and query and must come out
+    bit-equal."""
+    q, k, v, t, ln = arrs
+    i, j = share
+    t = t.copy()
+    t[j] = t[i]
+    q = q.copy()
+    q[j] = q[i]
+    args = _torch((q, k, v, t, ln), dt, device)
+    before = pa.paged_decode_attention.launches
+    torch.cuda.set_sync_debug_mode("error")    # the wrapper never syncs
+    try:
+        got = pa.paged_decode_attention_cuda(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = paged_decode_attention_dense_ref(*args)
+    torch.cuda.synchronize()
+    assert pa.paged_decode_attention.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=TOL[dt])
+    assert not got[args[4] == 0].any()
+    assert torch.equal(got[i], got[j])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page", [1, 12, 16])
+@pytest.mark.parametrize("dt", ["bf16", "f32"])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_paged_kernel_split_edges(cuda, d, dt, page):
+    """Lengths 0, 1, each edge of the first split +- 1, page +- 1, M*page
+    and M*page + 1 (clamps), G of 1, 4 and 12, pages of 1, 12 (which does
+    not divide the chunk) and 16, on the wrapper's plan with several
+    splits."""
+    tile = da.tile_positions(d, TDT[dt].itemsize)
+    chunk = pa.CHUNK_TILES * tile
+    m = -(-(2 * chunk + 40) // page)
+    n_split, plan_chunk = pa.split_plan(m * page, tile)
+    assert n_split > 1 and plan_chunk == chunk     # the merge pass runs
+    lengths = [0, 1, chunk - 1, chunk, chunk + 1, page - 1, page + 1,
+               2 * chunk + 1, m * page, m * page + 1, 300, 300]
+    for g in (1, 4, 12):
+        arrs = _problem(len(lengths), 2, g, d, page, m, lengths,
+                        seed=d + page + g)
+        _check_paged(arrs, dt, cuda, share=(10, 11))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["bf16", "f32"])
+def test_paged_kernel_at_serve_plan_shape(cuda, dt):
+    """serve_plan's decode: 128 slots of 48 pages of 16, H_kv=8, G=4,
+    D=64, 120 slots of length 1 below 8 live rows at 300-768 (two sharing
+    pages; the pool hands out the highest slots first)."""
+    lengths = [1] * 120 + [768, 300, 537, 640, 412, 412, 700, 555]
+    arrs = _problem(128, 8, 4, 64, 16, 48, lengths)
+    _check_paged(arrs, dt, cuda, share=(124, 125))
 
 
 DENSE_CUDA_CASES = {**DENSE_CASES,
