@@ -19,11 +19,17 @@ during decode.  Phases, each printed as one JSON line, in order:
   build        nvcc build of ``src/repro_torch/csrc/*.cu`` (seconds)
   setup        model weights, corpus encode, IVF-PQ index, two engines
   kernels      each kernel vs its plain version at its path's shapes,
-               timed warm in L2 (the attention kernels also cold); paged
-               decode at serve's and serve_plan's shapes and dense decode
-               also at greedy generation's B=1 shape, each with its
-               split; flash also at a few edges (ragged S, kv_len < S,
-               D=128)
+               timed warm and cold in L2; paged decode at serve's and
+               serve_plan's shapes and dense decode also at greedy
+               generation's B=1 shape, each with its split; flash also at
+               a few edges (ragged S, kv_len < S, D=128); the PQ scan at
+               one serve search, through both entry points
+  retrieve_scale  IVF-PQ search over a Wikipedia-sized index made on the
+               card (21,015,324 vectors in 4,096 lists, 96-byte codes): 32
+               queries through ``IVFPQBackend.search`` (one scan launch
+               each) against the plain search, the scan kernel against its
+               plain version with its bytes bound and lookup ceiling, and
+               where a search's time goes
   serve        16 Poisson-arriving questions through the paged engine;
                every kernel's launch count over this phase alone
   serve_dense  8 Poisson-arriving questions through the dense engine and
@@ -502,13 +508,17 @@ def check_flash_attention() -> dict:
     return out
 
 
-def check_pq_scan(rows: int, list_len: int, n_subq: int) -> dict:
-    """Kernel vs plain version, bit-equal in f32, at the scan shape one
-    search of the serve phase gives: (Q*nprobe, list_len, S)."""
+def check_pq_scan(index, nprobe: int) -> dict:
+    """Kernel vs plain version, bit-equal in f32, at the scan one search of
+    the serve phase gives: ``pq_scan`` over (nprobe, list_len, S) codes
+    (and a ragged tile edge), and ``pq_scan_lists`` over nprobe lists of
+    the serve index read in place, as ``ivf_pq.search`` calls it; each
+    timed warm and cold in L2."""
     import torch
     from repro_torch.kernels.pq_scan import ops as pq
-    from repro_torch.kernels.pq_scan.ref import pq_scan_ref
+    from repro_torch.kernels.pq_scan.ref import pq_scan_lists_ref, pq_scan_ref
 
+    rows, list_len, n_subq = nprobe, index.list_ids.shape[1], index.n_subq
     rng = np.random.default_rng(1)
     out = {"shape": [rows, list_len, n_subq]}
     for n in (list_len, list_len + 131):        # and a ragged tile edge
@@ -525,21 +535,267 @@ def check_pq_scan(rows: int, list_len: int, n_subq: int) -> dict:
                                  f"bit-equal to its plain version ({err})")
         if n == list_len:
             out["ms"] = device_ms(lambda: pq.pq_scan_cuda(lut, codes))
+            out["cold_ms"] = device_ms_cold(lambda: pq.pq_scan_cuda(lut,
+                                                                    codes))
             out["plain_ms"] = device_ms(lambda: pq_scan_ref(lut, codes))
             n_bytes = lut.numel() * 4 + codes.numel() + rows * n * 4
             out["bound_ms"], out["bound_by"] = bound(
                 n_bytes, rows * n * n_subq, "float32")
+    probe = torch.tensor(rng.choice(index.n_lists, rows, replace=False),
+                         dtype=torch.int32, device="cuda")
+    got = pq.pq_scan_lists_cuda(lut, index.list_codes, probe)
+    want = pq_scan_lists_ref(lut, index.list_codes, probe)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("pq_scan_lists over the serve index is not "
+                             "bit-equal to its plain version")
+    out["lists"] = {
+        "rows": probe.tolist(),
+        "ms": device_ms(lambda: pq.pq_scan_lists_cuda(lut, index.list_codes,
+                                                      probe)),
+        "cold_ms": device_ms_cold(lambda: pq.pq_scan_lists_cuda(
+            lut, index.list_codes, probe)),
+        "plain_ms": device_ms(lambda: pq_scan_lists_ref(
+            lut, index.list_codes, probe))}
     out["max_abs_err"] = 0.0
     return out
+
+
+#: the retrieve_scale phase's index: the DPR Wikipedia passage corpus
+#: (Karpukhin et al. 2020: 21,015,324 passages, 768-d) in 4,096 IVF lists,
+#: PQ-coded at RAGSchema.bytes_per_vec = 96 (one byte a sub-quantizer of 8
+#: dims); searched by the engine's encoder batch of 32 queries at
+#: EngineConfig's nprobe 8, k 10
+SCALE_VECTORS = 21_015_324
+SCALE_LISTS = 4096
+SCALE_DIM = 768
+SCALE_SUBQ = 96
+SCALE_QUERIES = 32
+SCALE_NPROBE = 8
+SCALE_K = 10
+
+
+def synthetic_index(seed: int = 0):
+    """An ``IVFPQIndex`` of the scale above, made on the card from a seed:
+    list lengths drawn uniformly in [0.5, 1.5] x the mean and summing to
+    SCALE_VECTORS, lists padded to the longest (a multiple of 8, as
+    ``build_index`` packs them) with id -1 and code 0, random codes, ids a
+    permutation of the corpus, random centroids and codebooks.  The scan
+    costs the same whatever trained the codes, so no k-means runs."""
+    import torch
+    from repro_torch.retrieval.ivf_pq import IVFPQIndex
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    u = 0.5 + torch.rand(SCALE_LISTS, generator=gen, device="cuda",
+                         dtype=torch.float64)
+    lengths = torch.floor(u / u.sum() * SCALE_VECTORS).long()
+    lengths[:SCALE_VECTORS - int(lengths.sum())] += 1
+    list_len = -(-int(lengths.max()) // 8) * 8
+    valid = (torch.arange(list_len, device="cuda")[None]
+             < lengths[:, None])
+    codes = torch.randint(0, 256, (SCALE_LISTS, list_len, SCALE_SUBQ),
+                          generator=gen, device="cuda", dtype=torch.uint8)
+    codes.mul_(valid[..., None])
+    ids = torch.full((SCALE_LISTS, list_len), -1, dtype=torch.int32,
+                     device="cuda")
+    ids[valid] = torch.randperm(SCALE_VECTORS, generator=gen, device="cuda",
+                                dtype=torch.int32)
+    centroids = torch.randn(SCALE_LISTS, SCALE_DIM, generator=gen,
+                            device="cuda")
+    codebooks = 0.5 * torch.randn(SCALE_SUBQ, 256, SCALE_DIM // SCALE_SUBQ,
+                                  generator=gen, device="cuda")
+    return IVFPQIndex(centroids=centroids, codebooks=codebooks,
+                      list_ids=ids, list_codes=codes,
+                      n_vectors=SCALE_VECTORS)
+
+
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def lookup_ceiling(list_codes, rows, n_blocks: int,
+                   sms: int = 132) -> dict:
+    """The least time of the scan's shared-memory traffic at the card's
+    highest SM clock.  A warp's lookup of one sub-quantizer for its 32 code
+    rows takes as many cycles as the most distinct 4-byte table words one
+    of the 32 banks holds (the bank of code c is c % 32; equal codes are
+    one word); this counts that for every (warp, sub-quantizer) of these
+    codes, lanes past the list's end idle.  The code bytes pass through
+    shared memory twice (the copy writes them, the threads read them) and
+    each block writes its table once, at 128 bytes a cycle an SM."""
+    import torch
+    n, ll, s = len(rows), list_codes.shape[1], list_codes.shape[2]
+    warps = -(-ll // 32)
+    cycles = 0
+    for i in range(0, n, 16):
+        c = list_codes[rows[i:i + 16].long()]                   # (r, LL, S)
+        pad = warps * 32 - ll
+        if pad:       # idle lanes repeat lane 0's code: no word of their own
+            c = torch.cat([c, c[:, -(ll % 32):][:, :1].expand(
+                -1, pad, -1)], dim=1)
+        lanes = c.reshape(c.shape[0], warps, 32, s).permute(0, 1, 3, 2)
+        present = torch.zeros(*lanes.shape[:3], 256, dtype=torch.bool,
+                              device=c.device)
+        present.scatter_(-1, lanes.long(), True)
+        words = present.view(*lanes.shape[:3], 8, 32).sum(dim=3)
+        cycles += int(words.amax(dim=-1).sum())
+    lookups = n * ll * s
+    code_bytes = n * ll * s
+    cycles_total = (cycles + 2 * code_bytes / 128
+                    + n_blocks * s * 1024 / 128)
+    clock = max_sm_clock_hz()
+    return {"ms": cycles_total / sms / clock * 1e3,
+            "lookup_cycles": cycles, "lookups": lookups,
+            "conflict_degree": cycles * 32 / lookups,
+            "sm_clock_mhz": clock / 1e6}
+
+
+def search_breakdown(index, queries, nprobe: int, k: int,
+                     reps: int = 5) -> dict:
+    """Where one ``ivf_pq.search`` spends its time, step by step -- coarse
+    scan, ADC tables, the PQ scan (the kernel over the lists in place),
+    top-k -- each step's device time (``device_ms``) and its wall time on
+    the host clock, synchronised after the step (median of ``reps``); and
+    beside them the plain scan of the gathered lists and the
+    ``list_codes[probe]`` gather alone, which the kernel's path no longer
+    runs."""
+    import torch
+    from repro_torch.retrieval import ivf_pq
+
+    probe = ivf_pq.probe_lists(index, queries, nprobe)
+    tables = ivf_pq.adc_tables(index, queries, index.centroids[probe])
+    dists = ivf_pq.scan_lists(index, tables, probe, use_kernel=True)
+    steps = {
+        "coarse": lambda: ivf_pq.probe_lists(index, queries, nprobe),
+        "adc_tables": lambda: ivf_pq.adc_tables(index, queries,
+                                                index.centroids[probe]),
+        "scan": lambda: ivf_pq.scan_lists(index, tables, probe,
+                                          use_kernel=True),
+        "top_k": lambda: ivf_pq.select_top_k(index, probe, dists, k),
+        "scan_plain": lambda: ivf_pq.scan_lists(index, tables, probe,
+                                                use_kernel=False),
+        "gather": lambda: index.list_codes[probe]}
+    out = {}
+    for name, fn in steps.items():
+        walls = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        out[name] = {"device_ms": device_ms(fn, reps=3 if name == "scan_plain"
+                                            else 10),
+                     "wall_ms": float(np.median(walls))}
+    q, p, s, _, dsub = (*tables.shape, index.codebooks.shape[-1])
+    out["adc_temp_bytes"] = q * p * s * 256 * dsub * 4
+    return out
+
+
+def phase_retrieve_scale() -> dict:
+    """IVF-PQ search at the paper's scale: a Wikipedia-sized index on the
+    card (``synthetic_index``: 4,096 lists, 96-byte codes, ~3.0 GB of
+    codes), 32 queries from a seed through ``IVFPQBackend.search`` -- one
+    ``pq_scan`` launch a search -- held to the plain search's ids and
+    distances; the kernel against its plain version, bit-equal, timed warm
+    and cold beside its bytes bound and its shared-memory lookup ceiling;
+    where a search's time goes; the phase's peak device memory."""
+    import torch
+    from repro_torch.kernels.pq_scan import ops as pq
+    from repro_torch.kernels.pq_scan.ref import pq_scan_lists_ref
+    from repro_torch.retrieval import ivf_pq
+    from repro_torch.retrieval.backend import IVFPQBackend
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    index = synthetic_index(seed=0)
+    queries = torch.randn(SCALE_QUERIES, SCALE_DIM, device="cuda",
+                          generator=torch.Generator(device="cuda")
+                          .manual_seed(1))
+    torch.cuda.synchronize()
+    t_index = time.perf_counter() - t0
+    backend = IVFPQBackend.from_index(index, nprobe=SCALE_NPROBE,
+                                      device="cuda")
+    backend.search(queries, SCALE_K)                 # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        scores, ids = backend.search(queries, SCALE_K)
+        walls.append(time.perf_counter() - t0)
+    launches = read_launches()
+    if launches != {**{name: 0 for name in launches}, "pq_scan": 5}:
+        raise AssertionError(f"5 searches launched {launches}")
+    d_k, i_k = ivf_pq.search(index, queries, SCALE_NPROBE, SCALE_K,
+                             use_kernel=True)
+    d_p, i_p = ivf_pq.search(index, queries, SCALE_NPROBE, SCALE_K,
+                             use_kernel=False)
+    if not (torch.equal(i_k, i_p) and torch.equal(d_k, d_p)
+            and np.array_equal(ids, i_k.cpu().numpy())
+            and np.array_equal(-scores, d_k.cpu().numpy())):
+        raise AssertionError("IVF-PQ search at scale differs with the scan "
+                             "kernel")
+    if not (torch.isfinite(d_k).all() and (i_k >= 0).all()):
+        raise AssertionError("IVF-PQ search at scale: padding in the top-k")
+    # the kernel at this scan's shape
+    probe = ivf_pq.probe_lists(index, queries, SCALE_NPROBE)
+    tables = ivf_pq.adc_tables(index, queries, index.centroids[probe])
+    lut = tables.reshape(-1, SCALE_SUBQ, 256).contiguous()
+    rows = probe.reshape(-1).int()
+    codes = index.list_codes
+    got = pq.pq_scan_lists_cuda(lut, codes, rows)
+    want = pq_scan_lists_ref(lut, codes, rows)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("pq_scan_lists at scale is not bit-equal to "
+                             "its plain version")
+    del want
+    b, ll = got.shape
+    ms = device_ms(lambda: pq.pq_scan_lists_cuda(lut, codes, rows), reps=20)
+    cold_ms = device_ms_cold(lambda: pq.pq_scan_lists_cuda(lut, codes, rows))
+    plain_ms = device_ms(lambda: pq_scan_lists_ref(lut, codes, rows), reps=3)
+    distinct = int(torch.unique(rows).numel())
+    code_bytes = distinct * ll * SCALE_SUBQ
+    n_bytes = code_bytes + lut.numel() * 4 + b * 4 + b * ll * 4
+    bound_ms, bound_by = bound(n_bytes, b * ll * SCALE_SUBQ, "float32")
+    n_split, _, _ = pq.scan_plan(b, ll, SCALE_SUBQ)
+    ceiling = lookup_ceiling(codes, rows, b * n_split)
+    result = {
+        "phase": "retrieve_scale", "index_s": t_index,
+        "vectors": SCALE_VECTORS, "lists": SCALE_LISTS, "list_len": ll,
+        "subq": SCALE_SUBQ, "code_bytes_total": codes.numel(),
+        "queries": SCALE_QUERIES, "nprobe": SCALE_NPROBE, "k": SCALE_K,
+        "launches": launches, "search_wall_ms": [w * 1e3 for w in walls],
+        "search_ids_equal": True,
+        "kernel": {"shape": [b, ll, SCALE_SUBQ], "distinct_lists": distinct,
+                   "n_split": n_split, "ms": ms, "cold_ms": cold_ms,
+                   "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "bytes": n_bytes,
+                   "lookup_ceiling_ms": ceiling["ms"],
+                   "lookup_ceiling": ceiling,
+                   "codes_gb_per_s": code_bytes / ms / 1e6,
+                   "cold_codes_gb_per_s": code_bytes / cold_ms / 1e6,
+                   "bit_equal": True},
+        "search_device": search_breakdown(index, queries, SCALE_NPROBE,
+                                          SCALE_K),
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "phase_peak_mem_bytes": torch.cuda.max_memory_allocated() - base}
+    emit(result)
+    return result
 
 
 def phase_kernels(engine) -> dict:
     import torch
     pa = check_paged_attention()
     emit({"phase": "kernels", "kernel": "paged_decode_attention", **pa})
-    index = engine.backend.chain[0].index
-    rows = engine.backend.chain[0].nprobe        # one query per search
-    pq = check_pq_scan(rows, index.list_ids.shape[1], index.n_subq)
+    backend = engine.backend.chain[0]
+    pq = check_pq_scan(backend.index, backend.nprobe)   # one query a search
     emit({"phase": "kernels", "kernel": "pq_scan", "tol": "bit-equal",
           **pq})
     dense = check_decode_attention()
@@ -588,7 +844,7 @@ def phase_serve(engine, questions) -> dict:
                              f"expected {n_layers} x {steps}")
     if launches["decode_attention"] != 0:
         raise AssertionError("the dense kernel ran on the paged path")
-    if launches["pq_scan"] < searches or searches < len(questions):
+    if launches["pq_scan"] != searches or searches < len(questions):
         raise AssertionError(f"pq_scan launched {launches['pq_scan']} "
                              f"times for {searches} searches")
     check_flash_launches(engine, launches, snap["prefills"], searches)
@@ -705,7 +961,7 @@ def phase_serve_dense(dense, questions) -> dict:
                              f"expected {n_layers} x ({steps} + {greedy})")
     if launches["paged_decode_attention"] != 0:
         raise AssertionError("the paged kernel ran on the dense path")
-    if launches["pq_scan"] < searches or searches < 2 * len(questions):
+    if launches["pq_scan"] != searches or searches < 2 * len(questions):
         raise AssertionError(f"pq_scan launched {launches['pq_scan']} "
                              f"times for {searches} searches")
     check_flash_launches(dense, launches, snap["prefills"], searches)
@@ -804,7 +1060,7 @@ def phase_serve_plan(engine, questions) -> dict:
                              f"expected {n_layers} x {steps}")
     if launches["decode_attention"] != 0:
         raise AssertionError("the dense kernel ran on the paged path")
-    if launches["pq_scan"] < searches:
+    if launches["pq_scan"] != searches:
         raise AssertionError(f"pq_scan launched {launches['pq_scan']} "
                              f"times for {searches} searches")
     # the corpus encode of the fresh engine, then the prefills and embeds
@@ -1022,6 +1278,7 @@ def main() -> int:
     phase_build()
     engine, dense, questions = phase_setup()
     checks = phase_kernels(engine)
+    phase_retrieve_scale()
     served = phase_serve(engine, questions)
     served_dense = phase_serve_dense(dense, questions)
     served_plan = phase_serve_plan(engine, questions)

@@ -1,4 +1,4 @@
-"""Plain PyTorch version of the PQ ADC scan (mirror of
+"""Plain PyTorch versions of the PQ ADC scan (mirror of
 ``repro.kernels.pq_scan.ref`` and ``repro.retrieval.ivf_pq.pq_scan_ref``).
 
 The sum over sub-quantizers runs in order, s = 0..S-1 from zero, as the
@@ -19,3 +19,11 @@ def pq_scan_ref(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     for s in range(lut.shape[-2]):
         acc = acc + torch.gather(lut[..., s, :], -1, codes[..., s])
     return acc
+
+
+def pq_scan_lists_ref(lut: torch.Tensor, list_codes: torch.Tensor,
+                      rows: torch.Tensor) -> torch.Tensor:
+    """lut: (B, S, 256); list_codes: (L, LL, S) uint8; rows: (B,) ->
+    (B, LL) float32: row b scans list rows[b] (``pq_scan_ref`` of the
+    gathered lists)."""
+    return pq_scan_ref(lut, list_codes[rows.long()])

@@ -3,8 +3,8 @@
 Index: k-means coarse quantizer (IVF lists) + product-quantized residuals,
 packed as padded (n_lists, list_len) id and code tables (padding id -1).
 Query: (1) coarse scan -> top-nprobe lists, (2) ADC lookup tables, (3) PQ
-code scan over the probed lists -- the CUDA ``pq_scan`` kernel with
-``use_kernel`` -- and (4) top-k.
+code scan over the probed lists -- with ``use_kernel``, one launch of the
+CUDA ``pq_scan`` kernel reading them in place -- and (4) top-k.
 """
 
 from __future__ import annotations
@@ -14,12 +14,14 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch.kernels.pq_scan.ops import pq_scan_lists
 from repro_torch.kernels.pq_scan.ref import pq_scan_ref
 from repro_torch.retrieval import kmeans as km
 from repro_torch.retrieval.exact import knn, top_k
 
 __all__ = ["IVFPQIndex", "build_index", "adc_tables", "pq_scan_ref",
-           "search", "overlap_recall", "recall_at_k"]
+           "probe_lists", "scan_lists", "select_top_k", "search",
+           "overlap_recall", "recall_at_k"]
 
 
 @dataclass
@@ -80,32 +82,49 @@ def adc_tables(index: IVFPQIndex, queries: torch.Tensor,
     return torch.sum(diff * diff, dim=-1)
 
 
+def probe_lists(index: IVFPQIndex, queries: torch.Tensor,
+                nprobe: int) -> torch.Tensor:
+    """Coarse scan: queries (Q, D) -> the nprobe nearest lists (Q, P)."""
+    c2 = torch.sum(index.centroids ** 2, dim=-1)
+    coarse = c2[None] - 2.0 * queries @ index.centroids.T       # (Q, L)
+    _, probe = top_k(-coarse, nprobe)
+    return probe
+
+
+def scan_lists(index: IVFPQIndex, tables: torch.Tensor, probe: torch.Tensor,
+               use_kernel: bool = False) -> torch.Tensor:
+    """ADC distances of every code of the probed lists: tables (Q, P, S,
+    256), probe (Q, P) -> (Q, P, LL).  With ``use_kernel`` one ``pq_scan``
+    launch reads the probed lists where they lie in ``index.list_codes``;
+    the plain scan gathers them first."""
+    if use_kernel:
+        q, p, s, _ = tables.shape
+        return pq_scan_lists(tables.reshape(q * p, s, 256).contiguous(),
+                             index.list_codes,
+                             probe.reshape(-1).int()).reshape(q, p, -1)
+    return pq_scan_ref(tables, index.list_codes[probe])
+
+
+def select_top_k(index: IVFPQIndex, probe: torch.Tensor, dists: torch.Tensor,
+                 k: int):
+    """The k nearest across all probed lists: (distances (Q, k), ids (Q,
+    k)); ids past the probed lists' real vectors are -1 with distance
+    +inf."""
+    ids = index.list_ids[probe]                                # (Q,P,LL)
+    dists = torch.where(ids >= 0, dists, torch.inf)
+    qn = probe.shape[0]
+    neg, pos = top_k(-dists.reshape(qn, -1), k)
+    return -neg, torch.gather(ids.reshape(qn, -1), 1, pos)
+
+
 def search(index: IVFPQIndex, queries: torch.Tensor, nprobe: int = 8,
            k: int = 10, use_kernel: bool = False):
     """Returns (distances (Q, k), ids (Q, k)); ids past the probed lists'
     real vectors are -1 with distance +inf."""
-    from repro_torch.kernels.pq_scan.ops import pq_scan
-    # 1) coarse scan
-    c2 = torch.sum(index.centroids ** 2, dim=-1)
-    coarse = c2[None] - 2.0 * queries @ index.centroids.T       # (Q, L)
-    _, probe = top_k(-coarse, nprobe)                          # (Q, P)
-    probe_centroids = index.centroids[probe]
-    # 2) ADC tables
-    tables = adc_tables(index, queries, probe_centroids)       # (Q,P,S,256)
-    # 3) PQ scan over probed lists
-    codes = index.list_codes[probe]                            # (Q,P,LL,S)
-    ids = index.list_ids[probe]                                # (Q,P,LL)
-    if use_kernel:
-        q, p, ll, s = codes.shape
-        dists = pq_scan(tables.reshape(q * p, s, 256).contiguous(),
-                        codes.reshape(q * p, ll, s)).reshape(q, p, ll)
-    else:
-        dists = pq_scan_ref(tables, codes)
-    dists = torch.where(ids >= 0, dists, torch.inf)
-    # 4) top-k across all probed lists
-    qn = queries.shape[0]
-    neg, pos = top_k(-dists.reshape(qn, -1), k)
-    return -neg, torch.gather(ids.reshape(qn, -1), 1, pos)
+    probe = probe_lists(index, queries, nprobe)                # 1) coarse
+    tables = adc_tables(index, queries, index.centroids[probe])  # 2) ADC
+    dists = scan_lists(index, tables, probe, use_kernel)       # 3) PQ scan
+    return select_top_k(index, probe, dists, k)                # 4) top-k
 
 
 def overlap_recall(approx_ids, exact_ids) -> float:

@@ -1,8 +1,9 @@
 """The port stands alone and mirrors the JAX package's data structures.
 
 * ``repro_torch`` and every module in it import with ``jax`` blocked, and
-  no source line of the port (nor ``chip_smoke.py``) imports ``jax`` or
-  anything of ``repro``.
+  no source line of the port (nor of a script at the repository's root:
+  ``chip_smoke.py`` and the benches) imports ``jax`` or anything of
+  ``repro``.
 * The config dataclasses have the JAX ones' fields and defaults (the
   ``attn_impl`` values excepted: the port's kernel value is "cuda").
 * Weights, configs and indexes carried across by ``repro_torch.bridge``
@@ -61,7 +62,12 @@ def test_no_source_line_imports_jax_or_repro():
     pattern = re.compile(
         r"^\s*(import jax|from jax|import repro\b|from repro\b|"
         r"from repro\.)")
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    # the package and every script at the root (chip_smoke.py and the
+    # benches beside it)
+    scripts = sorted(ROOT.glob("*.py"))
+    assert {"chip_smoke.py", "paged_decode_bench.py"} <= {
+        f.name for f in scripts}
+    files = sorted(PORT.rglob("*.py")) + scripts
     bad = [f"{f}:{i}" for f in files
            for i, line in enumerate(f.read_text().splitlines(), 1)
            if pattern.match(line)]
