@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-Drives the port's three serving paths -- ``RAGServer`` over ``RAGEngine``
-with IBM Granite-3.0-2B at full width (random weights from a seed), an
-encoder of ENCODER_120M's widths with Granite's vocabulary, and IVF-PQ
-retrieval -- and holds every CUDA kernel of those paths against its plain
-PyTorch version.  Full-sequence attention (prefill, the encoder, greedy
-generation's prompt pass) runs the flash attention kernel on every path.
-The paged path decodes through the paged-decode kernel; the dense path
-decodes through the dense decode kernel, behind every pre-prefill stage
-of ``full_pipeline`` (rewrite, multi-query fan-out, rerank, safety
-filter); the plan path is RAGO's own workflow -- ``ServingPlan.optimize``
-on the ``iterative`` schema with Granite as its generator, then
-``RAGServer.from_plan`` and ``replay_trace`` -- with iterative retrieval
-during decode.  Phases, each printed as one JSON line, in order:
+Drives the port's serving paths -- ``RAGServer`` over ``RAGEngine`` and
+over the disaggregated ``RAGCluster``, with IBM Granite-3.0-2B at full
+width (random weights from a seed), an encoder of ENCODER_120M's widths
+with Granite's vocabulary, and IVF-PQ retrieval -- and holds every CUDA
+kernel of those paths against its plain PyTorch version.  Full-sequence
+attention (prefill, the encoder, greedy generation's prompt pass) runs the
+flash attention kernel on every path.  The paged path decodes through the
+paged-decode kernel; the dense path decodes through the dense decode
+kernel, behind every pre-prefill stage of ``full_pipeline`` (rewrite,
+multi-query fan-out, rerank, safety filter); the plan path is RAGO's own
+workflow -- ``ServingPlan.optimize`` on the ``iterative`` schema with
+Granite as its generator, then ``RAGServer.from_plan`` and
+``replay_trace`` -- with iterative retrieval during decode, deployed
+collocated and then as the plan's placement (2 prefill engines + 1 decode
+engine, KV handed off through host memory).  Phases, each printed as JSON
+lines (and its seconds as a ``phase_seconds`` line), in order:
 
   device       card name, ``nvidia-smi`` name and power limit, TF32 flags
   build        nvcc build of ``src/repro_torch/csrc/*.cu`` (seconds)
@@ -38,9 +41,23 @@ during decode.  Phases, each printed as one JSON line, in order:
                this card (a fresh engine: corpus encode, index, paged
                pool of 128 slots), 8 questions replayed from a JSONL
                trace, 256 tokens each; launch counts over this phase
+  serve_disagg the same plan deployed with ``topology="disagg"``: 2
+               prefill engines + 1 decode engine (``plan.group_sizes()``)
+               on this card, the same trace; TTFT/TPOT per group, the
+               handoff's bytes and its export / checksum / verify / import
+               times per request; launch counts over this phase
   check        teacher-forced decode step on each pool and teacher-forced
-               prefill, kernel vs plain attention, and IVF-PQ search with
-               and without the scan kernel
+               prefill, kernel vs plain attention; IVF-PQ search with and
+               without the scan kernel; disagg parity (4 questions one at
+               a time through a 1+1 cluster and a collocated engine: equal
+               tokens) and a handed-off slot read back bit-equal
+  chaos        every ``CHAOS_SCHEDULES`` entry on a 2+2 cluster (8 decode
+               slots, 16 tokens, 4 questions): every request terminal
+               once, nothing leaked, retry parity with the unfaulted run
+  control      a ``ClusterController`` on serve_disagg's cluster: the
+               H100 spec calibrated from its measurements and the re-plan
+               on it, then ``resize(2, 2)`` and ``resize(2, 1)`` during a
+               fresh replay of the trace, no request dropped
 
 then the ``{"kernels": [...]}`` line, the raw ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``.  Any failed check raises
@@ -981,11 +998,21 @@ def granite_iterative_schema():
     return dataclasses.replace(iterative(), generative=shape)
 
 
+def plan_system():
+    """One server of 4 H100s, the system serve_plan plans for."""
+    from repro_torch.core.hardware import H100_SXM, SystemConfig
+    return SystemConfig(n_servers=1, xpus_per_server=4, xpu=H100_SXM)
+
+
 #: what the JAX package's optimizer plans for that schema on 1 x 4 H100s
 #: (``tests/test_torch_plan.py`` holds the port's planner to it)
 EXPECTED_PLAN = {"decode_slots": 128, "retrieval_batch": 1, "s_max": 768,
                  "max_new_tokens": 256, "iterative_interval": 64,
                  "retrieval_backend": "ivfpq"}
+#: ... and its placement: prefill@2 || decode@1, as engine groups
+EXPECTED_GROUPS = (2, 1)
+#: the JSONL trace serve_plan writes and serve_disagg and control replay
+PLAN_TRACE = ROOT / "build" / "serve_plan_trace.jsonl"
 
 
 def phase_serve_plan(engine, questions) -> dict:
@@ -997,14 +1024,12 @@ def phase_serve_plan(engine, questions) -> dict:
     128 decode slots, s_max 768 and 256 new tokens stand unclamped."""
     import dataclasses
     import torch
-    from repro_torch.core.hardware import H100_SXM, SystemConfig
     from repro_torch.core.serving_plan import ServingPlan
     from repro_torch.serving.server import RAGServer, poisson_offsets
     from repro_torch.serving.trace import TraceEntry, save_trace
 
     questions = questions[:N_PLAN_QUESTIONS]
-    system = SystemConfig(n_servers=1, xpus_per_server=4, xpu=H100_SXM)
-    plan = ServingPlan.optimize(granite_iterative_schema(), system)
+    plan = ServingPlan.optimize(granite_iterative_schema(), plan_system())
     fields = dataclasses.asdict(plan.engine_config())
     emit({"phase": "serve_plan", "plan": plan.describe(),
           "engine_config": fields})
@@ -1012,7 +1037,7 @@ def phase_serve_plan(engine, questions) -> dict:
     if wrong or plan.iter_batch != 1:
         raise AssertionError(f"plan differs from the reference's: {wrong}, "
                              f"iter_batch {plan.iter_batch}")
-    trace = ROOT / "build" / "serve_plan_trace.jsonl"
+    trace = PLAN_TRACE
     trace.parent.mkdir(parents=True, exist_ok=True)
     save_trace(trace, [TraceEntry(arrival_s=float(t), question=q)
                        for t, q in zip(poisson_offsets(
@@ -1068,7 +1093,227 @@ def phase_serve_plan(engine, questions) -> dict:
     corpus_batches = -(-n_docs // 32)
     check_flash_launches(plan_engine, launches, snap["prefills"],
                          searches + corpus_batches)
+    return result, plan
+
+
+#: the handoff's four steps, each timed on the engine that runs it
+HANDOFF_STEPS = (("export", "prefill"), ("checksum", "prefill"),
+                 ("verify", "decode"), ("import", "decode"))
+
+
+def handoff_times(cluster) -> dict:
+    """Per-request wall time (ms) of each handoff step over a cluster's
+    engines: mean and max from the engines' stage histograms.  Export
+    ends in its copy to host memory and import's host-to-device copy
+    waits for the device, so both read the device's work; the checksums
+    are host work."""
+    out = {}
+    for step, group in HANDOFF_STEPS:
+        engines = (cluster.prefill_engines if group == "prefill"
+                   else cluster.decode_engines)
+        hists = [e.metrics_snapshot().get("histograms", {})
+                 .get("stage_seconds:" + step) for e in engines]
+        hists = [h for h in hists if h and h["count"]]
+        n = sum(h["count"] for h in hists)
+        out[step] = {"n": n,
+                     "mean_ms": sum(h["sum"] for h in hists) / n * 1e3
+                     if n else None,
+                     "max_ms": max(h["max"] for h in hists) * 1e3
+                     if n else None}
+    return out
+
+
+def phase_serve_disagg(engine, questions, plan) -> dict:
+    """serve_plan's own plan deployed as its placement: ``RAGServer.
+    from_plan(..., topology="disagg")`` builds ``plan.group_sizes()`` =
+    2 prefill engines + 1 decode engine on this card (the first prefill
+    engine embeds the corpus and builds the IVF-PQ index, the others
+    share them), and the same 8-question trace is replayed, 256 tokens
+    each, no deadline.  Every engine runs on this one card and one Python
+    thread, so the groups take turns: the phase shows the handoff's cost,
+    not what disaggregation buys across chips."""
+    import torch
+    from repro_torch.serving.server import RAGServer
+
+    questions = questions[:N_PLAN_QUESTIONS]
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    server = RAGServer.from_plan(plan, engine.gen, engine.enc, engine.corpus,
+                                 topology="disagg", device=engine.device)
+    torch.cuda.synchronize()
+    t_deploy = time.perf_counter() - t0
+    cluster = server.cluster
+    groups = (len(cluster.prefill_engines), len(cluster.decode_engines))
+    if groups != plan.group_sizes() or groups != EXPECTED_GROUPS:
+        raise AssertionError(f"disagg groups {groups}, plan "
+                             f"{plan.group_sizes()}")
+    t0 = time.perf_counter()
+    handles = server.replay_trace(PLAN_TRACE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    summary = server.summary()
+    group = cluster.group_summary()
+    engines = cluster.prefill_engines + cluster.decode_engines
+    snaps = [e.metrics_snapshot() for e in engines]
+    decode_snap = snaps[-1]
+    steps = decode_snap["decode_host_syncs"]
+    searches = sum(sn.get("histograms", {}).get("stage_seconds:retrieve",
+                                                {}).get("count", 0)
+                   for sn in snaps)
+    prefills = sum(sn["prefills"] for sn in snaps)
+    iterative = [h.request.retrievals_done for h in handles]
+    n_handoffs = cluster.metrics["handoffs"]
+    result = {
+        "phase": "serve_disagg", "deploy_s": t_deploy, "wall_s": wall,
+        "groups": {"prefill": groups[0], "decode": groups[1]},
+        "n_done": summary["n_done"], "n_submitted": len(handles),
+        "qps": summary["qps"], "ttft_s": summary["ttft_s"],
+        "ttft_p99_s": summary["ttft_p99_s"], "tpot_s": summary["tpot_s"],
+        "tpot_p99_s": summary["tpot_p99_s"],
+        "group_summary": {k: group[k] for k in ("prefill", "decode",
+                                                "health", "depths")},
+        "handoff": {k: group["scheduler"][k] for k in (
+            "handoffs", "handoff_bytes", "handoff_bytes_full",
+            "handoff_pages", "handoff_pages_shared")},
+        "handoff_bytes_per_request": (group["scheduler"]["handoff_bytes_full"]
+                                      / n_handoffs if n_handoffs else None),
+        "handoff_ms": handoff_times(cluster),
+        "stage_time_s": {f"{g}{i}": sn["stage_time_s"] for (g, i), sn in zip(
+            [("prefill", i) for i in range(groups[0])]
+            + [("decode", i) for i in range(groups[1])], snaps)},
+        "decode_steps": steps, "searches": searches, "prefills": prefills,
+        "iterative_retrievals": iterative,
+        "kv_pages": {"prefill": cluster.prefill_engines[0].pool.n_pages,
+                     "decode": cluster.decode_engines[0].pool.n_pages},
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "attn_impl": [sn["attn_impl"] for sn in snaps],
+        "launches": launches, "first_output": handles[0].output[:8]}
+    emit(result)
+    if any(sn["attn_impl"] != "cuda" for sn in snaps):
+        raise AssertionError("an engine of the cluster is not on the "
+                             "CUDA attention kernels")
+    check_served(cluster.decode_engines[0], handles, questions, decode_snap,
+                 n_tokens=EXPECTED_PLAN["max_new_tokens"])
+    if min(iterative) < 1:
+        raise AssertionError(f"iterative retrievals per request: {iterative}")
+    if n_handoffs != len(questions) or not group["scheduler"][
+            "handoff_bytes"] > 0:
+        raise AssertionError(f"{n_handoffs} handoffs for {len(questions)}")
+    n_layers = engine.gen.cfg.n_layers
+    if launches["paged_decode_attention"] != n_layers * steps:
+        raise AssertionError(f"paged attention launched "
+                             f"{launches['paged_decode_attention']} times, "
+                             f"expected {n_layers} x {steps}")
+    if launches["decode_attention"] != 0:
+        raise AssertionError("the dense kernel ran on the paged path")
+    if launches["pq_scan"] != searches:
+        raise AssertionError(f"pq_scan launched {launches['pq_scan']} "
+                             f"times for {searches} searches")
+    # the corpus encode of the first prefill engine, then every engine's
+    # prefills and query embeds
+    corpus_batches = -(-len(engine.corpus) // 32)
+    check_flash_launches(engine, launches, prefills,
+                         searches + corpus_batches)
+    result["cluster"] = cluster
     return result
+
+
+def near_tie_margin(gen, prompt, prefix, device) -> float:
+    """Top-2 margin of the plain-attention next-token logits after
+    ``prompt + prefix`` (teacher forced, one forward)."""
+    import torch
+    from repro_torch.models import transformer as tr
+    toks = np.concatenate([prompt, prefix]).astype(np.int32)[None]
+    logits, _ = tr.forward(gen.params, torch.tensor(toks, device=device),
+                           gen.cfg)
+    top2 = torch.topk(logits[0, -1, :gen.cfg.vocab_size].float(), 2).values
+    return float(top2[0] - top2[1])
+
+
+def check_disagg_parity(cluster, questions) -> dict:
+    """4 questions, one at a time (each run to its end before the next),
+    through a 1+1 cluster and through a collocated engine with the same
+    ``EngineConfig`` (serve_plan's with 8 slots, 32 new tokens and a
+    retrieval every 8), both sharing serve_disagg's corpus encode and
+    index: the token streams must be equal.  A difference is reported
+    with its step and the plain top-2 margin there, and passes only as a
+    near tie (margin <= 2 x ``compare_logits``' atol).  Then one slot
+    handed off between two pools reads back bit-equal on the card."""
+    import dataclasses
+    import torch
+    from repro_torch.serving.cluster import RAGCluster
+    from repro_torch.serving.engine import RAGEngine
+    from repro_torch.serving.request import Request
+    from repro_torch.serving.server import RAGServer
+
+    base = cluster.prefill_engines[0]
+    cfg = dataclasses.replace(cluster.cfg, decode_slots=8, max_new_tokens=32,
+                              iterative_interval=8)
+    shared = dict(db_vectors=base.db_vectors, backend=base.backend.chain[0],
+                  device=base.device)
+    gen, enc, corpus = base.gen, base.enc, base.corpus
+    colo = RAGEngine(gen, enc, corpus, cfg, **shared)
+    first = RAGEngine(gen, enc, corpus, dataclasses.replace(cfg,
+                                                            decode_slots=1),
+                      **shared)
+    pair = RAGCluster([first], [RAGEngine(gen, enc, corpus, cfg,
+                                          db_vectors=base.db_vectors,
+                                          backend=first.backend,
+                                          device=base.device)])
+    streams = {}
+    for name, target in (("collocated", colo), ("disagg", pair)):
+        server = RAGServer(target)
+        streams[name] = [server.submit(q.copy()).result()
+                         for q in questions[:4]]
+    out = {"requests": len(streams["disagg"]), "new_tokens": 32,
+           "equal": 0, "near_ties": []}
+    atol = 0.1                       # compare_logits' tolerance
+    for i, (a, b) in enumerate(zip(streams["collocated"],
+                                   streams["disagg"])):
+        if a.state is not b.state or a.retrieved_ids != b.retrieved_ids:
+            raise AssertionError(f"disagg parity request {i}: {a.state} "
+                                 f"{a.retrieved_ids} vs {b.state} "
+                                 f"{b.retrieved_ids}")
+        if a.output == b.output:
+            out["equal"] += 1
+            continue
+        step = next(t for t, (x, y) in enumerate(zip(a.output, b.output))
+                    if x != y)
+        margin = near_tie_margin(gen, a.prompt, np.asarray(a.output[:step]),
+                                 base.device)
+        tie = {"request": i, "step": step, "collocated": a.output[step],
+               "disagg": b.output[step], "plain_top2_margin": margin}
+        out["near_ties"].append(tie)
+        if not margin <= 2 * atol:
+            emit({"phase": "check", "disagg_parity": out})
+            raise AssertionError(f"disagg parity: not a near tie: {tie}")
+    if pair.metrics["handoffs"] != 4 or pair.metrics["handoff_corrupt"]:
+        raise AssertionError(f"disagg parity handoffs: {pair.describe()}")
+    # one handed-off slot, read back page by page from both pools
+    req = Request(question=questions[0].copy())
+    req.prompt = streams["disagg"][0].prompt
+    src, dst = first.pool, pair.decode_engines[0].pool
+    s_slot = src.alloc(req.rid)
+    first.prefill_compute(req, s_slot)
+    kv, length = src.export_slot(s_slot)
+    d_slot = dst.alloc(req.rid)
+    dst.import_slot(d_slot, kv, length)
+    ps = src.page_size
+    for j, (a, b) in enumerate(zip(src.page_tables[s_slot],
+                                   dst.page_tables[d_slot])):
+        n = min(length - j * ps, ps)
+        for k in src.cache:
+            if not torch.equal(src.cache[k][:, a, :n], dst.cache[k][:, b, :n]):
+                raise AssertionError(f"handed-off page {j} ({k}) differs")
+    out["readback"] = {"tokens": length,
+                       "pages": len(src.page_tables[s_slot]),
+                       "bit_equal": True}
+    src.release(s_slot)
+    dst.release(d_slot)
+    return out
 
 
 def compare_logits(name: str, plain, kern) -> dict:
@@ -1103,11 +1348,12 @@ def compare_logits(name: str, plain, kern) -> dict:
     return result
 
 
-def phase_check(engine, dense, questions) -> dict:
+def phase_check(engine, dense, questions, cluster) -> dict:
     """One teacher-forced decode step of the full-width model on each pool,
     every slot filled, and one teacher-forced prefill of 8 prompts, plain
-    attention vs the kernel; and IVF-PQ search with the scan kernel vs the
-    plain scan."""
+    attention vs the kernel; IVF-PQ search with the scan kernel vs the
+    plain scan; and disagg parity (``check_disagg_parity``) on
+    serve_disagg's corpus encode and index."""
     import torch
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -1204,10 +1450,238 @@ def phase_check(engine, dense, questions) -> dict:
     if not (torch.equal(i_k, i_p) and torch.equal(d_k, d_p)):
         raise AssertionError("IVF-PQ search differs with the scan kernel")
     result["search_ids_equal"] = True
-    emit(result)
     for eng in (engine, dense):
         for slot in list(eng.active):
             eng.abort_request(eng.active[slot], "smoke check done")
+    result["disagg_parity"] = check_disagg_parity(cluster, questions)
+    emit(result)
+    return result
+
+
+#: the chaos phase: 4 questions, 16 new tokens, 8 decode slots, 2+2
+N_CHAOS_QUESTIONS = 4
+CHAOS_TOKENS = 16
+
+
+def chaos_cluster(base, cfg, injector):
+    """A 2-prefill + 2-decode cluster on the card sharing ``base``'s corpus
+    encode and IVF-PQ index (its own fallback chain, so the injector
+    reaches no other cluster)."""
+    import dataclasses
+    from repro_torch.serving.cluster import RAGCluster
+    from repro_torch.serving.engine import RAGEngine
+
+    gen, enc, corpus = base.gen, base.enc, base.corpus
+    one = dataclasses.replace(cfg, decode_slots=1)
+    first = RAGEngine(gen, enc, corpus, one, db_vectors=base.db_vectors,
+                      backend=base.backend.chain[0], device=base.device)
+    shared = dict(db_vectors=first.db_vectors, backend=first.backend,
+                  device=base.device)
+    return RAGCluster(
+        [first, RAGEngine(gen, enc, corpus, one, **shared)],
+        [RAGEngine(gen, enc, corpus, cfg, **shared) for _ in range(2)],
+        injector=injector, retry_backoff=0.001)
+
+
+def check_no_leaks(cluster, engines=None) -> None:
+    """Nothing waiting anywhere, every slot free and every page's
+    refcount zero (free, or cached as a prefix page)."""
+    if cluster.queue or cluster.handoff or cluster.retrying:
+        raise AssertionError("requests left waiting in the cluster")
+    for eng in engines or cluster.prefill_engines + cluster.decode_engines:
+        pool = eng.pool
+        if (eng.active or eng.pending_retrievals or eng.prefilling
+                or sorted(pool.free) != list(range(pool.n_slots))
+                or int(np.sum(pool.ref)) != 0):
+            raise AssertionError(f"engine leaks: {len(pool.free)} of "
+                                 f"{pool.n_slots} slots free, "
+                                 f"{int(np.sum(pool.ref))} page references")
+
+
+def phase_chaos(disagg_cluster, questions) -> dict:
+    """Every ``CHAOS_SCHEDULES`` entry on a 2+2 cluster at Granite width
+    on the card (8 decode slots, s_max 768, 16 new tokens, 4 questions),
+    beside an unfaulted run of the same questions.  Each must end with
+    every request in exactly one terminal state, free every slot and
+    page, give every DONE request that was not degraded and retrieved
+    the unfaulted run's documents the unfaulted run's tokens (retry
+    parity), and fire each point of its schedule as often as the
+    schedule says.  A request whose first retrieval was served by the
+    exact-scan fallback (``retrieval_timeout``) may have other documents,
+    and so other tokens; those are counted and must not outnumber the
+    backend's fallbacks."""
+    import dataclasses
+    from repro_torch.serving.faults import (CHAOS_SCHEDULES, FaultInjector,
+                                            FaultPlan)
+    from repro_torch.serving.request import TERMINAL_STATES, State
+    from repro_torch.serving.server import RAGServer
+
+    base = disagg_cluster.prefill_engines[0]
+    cfg = dataclasses.replace(disagg_cluster.cfg, decode_slots=8,
+                              max_new_tokens=CHAOS_TOKENS)
+    questions = questions[:N_CHAOS_QUESTIONS]
+
+    def run(injector):
+        cluster = chaos_cluster(base, cfg, injector)
+        server = RAGServer(cluster)
+        handles = [server.submit(q.copy()) for q in questions]
+        server.run_until_idle(max_steps=5000)
+        return cluster, [h.request for h in handles]
+
+    t0 = time.perf_counter()
+    cluster, ref = run(None)
+    if any(r.state is not State.DONE for r in ref):
+        raise AssertionError("unfaulted chaos run: not every request DONE")
+    check_no_leaks(cluster)
+    out = {"phase": "chaos", "questions": len(questions),
+           "new_tokens": CHAOS_TOKENS, "decode_slots": cfg.decode_slots,
+           "unfaulted_s": time.perf_counter() - t0, "schedules": {}}
+    for name, schedule in sorted(CHAOS_SCHEDULES.items()):
+        t0 = time.perf_counter()
+        inj = FaultInjector(FaultPlan.from_schedule(schedule, seed=7))
+        cluster, reqs = run(inj)
+        for r in reqs:
+            if (r.state not in TERMINAL_STATES
+                    or sum(s in TERMINAL_STATES
+                           for s in r.state_history) != 1):
+                raise AssertionError(f"chaos {name}: request {r.rid} "
+                                     f"{r.state_history}")
+        check_no_leaks(cluster)
+        fired = {}
+        for point, *_ in inj.log:
+            fired[point] = fired.get(point, 0) + 1
+        want = {}
+        for spec in schedule:
+            want[spec["point"]] = want.get(spec["point"], 0) + \
+                spec.get("count", 1)
+        if fired != want:
+            raise AssertionError(f"chaos {name}: fired {fired}, schedule "
+                                 f"{want}")
+        other_docs = 0
+        for r, u in zip(reqs, ref):
+            if r.state is not State.DONE or r.degraded:
+                continue
+            if r.retrieved_ids != u.retrieved_ids:
+                other_docs += 1
+                continue
+            if r.output != u.output:
+                raise AssertionError(f"chaos {name}: request {r.rid} lost "
+                                     f"retry parity")
+        scheduler = cluster.group_summary()["scheduler"]
+        if other_docs > scheduler["retrieval_fallbacks"]:
+            raise AssertionError(f"chaos {name}: {other_docs} requests "
+                                 f"retrieved other documents with "
+                                 f"{scheduler['retrieval_fallbacks']} "
+                                 f"fallbacks")
+        out["schedules"][name] = {
+            "seconds": time.perf_counter() - t0, "fired": fired,
+            "states": [r.state.value for r in reqs],
+            "degraded": sum(r.degraded for r in reqs),
+            "other_documents": other_docs,
+            "parity_checked": sum(r.state is State.DONE and not r.degraded
+                                  and r.retrieved_ids == u.retrieved_ids
+                                  for r, u in zip(reqs, ref)),
+            "counters": {k: v for k, v in scheduler.items() if v}}
+    emit(out)
+    return out
+
+
+def phase_control(disagg, questions, plan) -> dict:
+    """A ``ClusterController`` on serve_disagg's cluster: the H100 spec
+    calibrated from what the cluster measured (``measured_specs``) beside
+    the nominal one, the plan ``ServingPlan.optimize`` gives on it, then
+    a make-before-break resize during a fresh replay of the 8-question
+    trace: ``resize(2, 2)`` after the 3rd arrival (a decode engine built
+    on the cluster's corpus encode and index), ``resize(2, 1)`` after the
+    6th, which drains the newest decode engine and migrates its
+    requests."""
+    import dataclasses
+    import torch
+    from repro_torch.core.serving_plan import ServingPlan
+    from repro_torch.serving.controller import ClusterController
+    from repro_torch.serving.engine import RAGEngine
+    from repro_torch.serving.request import State
+    from repro_torch.serving.server import RAGServer
+
+    cluster = disagg["cluster"]
+    base = cluster.prefill_engines[0]
+    schema, system = granite_iterative_schema(), plan_system()
+
+    def factory(group):
+        cfg = cluster.cfg if group == "decode" else \
+            dataclasses.replace(cluster.cfg, decode_slots=1)
+        return RAGEngine(base.gen, base.enc, base.corpus, cfg,
+                         db_vectors=base.db_vectors, backend=base.backend,
+                         device=base.device)
+
+    server = RAGServer.from_cluster(cluster)
+    ctl = ClusterController(server, schema, system, plan,
+                            engine_factory=factory)
+    xpu, host, record = ctl.measured_specs()
+    replan = ServingPlan.optimize(schema, system, xpu=xpu, host=host,
+                                  **plan.engine_overrides)
+    nominal = system.xpu
+    specs = {
+        "calibrated": record,
+        "nominal": {"flops_eff": nominal.flops_eff,
+                    "mem_eff": nominal.mem_eff,
+                    "decode_bytes_per_s": nominal.eff_mem_bw,
+                    "host_scan_bytes_per_s_per_core":
+                        system.host.pq_scan_bw_per_core},
+        "measured": {"flops_eff": xpu.flops_eff, "mem_eff": xpu.mem_eff,
+                     "decode_bytes_per_s": xpu.eff_mem_bw,
+                     "host_scan_bytes_per_s_per_core":
+                         host.pq_scan_bw_per_core if host else None}}
+    emit({"phase": "control", "specs": specs,
+          "plan": plan.describe(), "replan": replan.describe(),
+          "replan_groups": replan.group_sizes(),
+          "predicted_ttft_s": {"plan": plan.predicted.get("ttft"),
+                               "replan": replan.predicted.get("ttft")},
+          "measured_ttft_s": {"mean": disagg["ttft_s"],
+                              "p99": disagg["ttft_p99_s"]}})
+    steps = [(3, (2, 2)), (6, (2, 1))]         # (after arrival, target)
+    resized = []
+
+    def hook(srv):
+        while (len(resized) < len(steps)
+               and len(srv.handles) >= steps[len(resized)][0]):
+            at, target = steps[len(resized)]
+            resized.append({"after_arrival": at, "target": target,
+                            **ctl.resize(*target)})
+    server.add_step_hook(hook)
+    added0 = cluster.metrics["engines_added"]
+    removed0 = cluster.metrics["engines_removed"]
+    t0 = time.perf_counter()
+    handles = server.replay_trace(PLAN_TRACE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    summary = server.summary()
+    m = cluster.metrics
+    result = {"phase": "control", "wall_s": wall,
+              "n_done": summary["n_done"], "n_submitted": len(handles),
+              "ttft_s": summary["ttft_s"], "tpot_s": summary["tpot_s"],
+              "resizes": resized,
+              "engines_added": m["engines_added"] - added0,
+              "engines_removed": m["engines_removed"] - removed0,
+              "requests_migrated": m["requests_migrated"],
+              "retired": [(g, eid) for g, eid, _ in cluster.retired],
+              "groups": {"prefill": len(cluster.prefill_engines),
+                         "decode": len(cluster.decode_engines)}}
+    emit(result)
+    if [h.state for h in handles] != [State.DONE] * len(handles) or \
+            len(handles) != N_PLAN_QUESTIONS:
+        raise AssertionError(f"control: {[h.state for h in handles]}")
+    if len(resized) != 2 or result["engines_added"] != 1 or \
+            result["engines_removed"] != 1:
+        raise AssertionError(f"control resized {resized}, added "
+                             f"{result['engines_added']}, removed "
+                             f"{result['engines_removed']}")
+    retired = [e for g, _eid, e in cluster.retired if g == "decode"]
+    if len(retired) != 1:
+        raise AssertionError(f"retired engines: {cluster.retired}")
+    check_no_leaks(cluster, cluster.prefill_engines
+                   + cluster.decode_engines + retired)
+    result["specs"] = specs
     return result
 
 
@@ -1274,15 +1748,26 @@ def main() -> int:
         return 2
     profile_decode = "--profile" in sys.argv[1:]
 
-    dev = phase_device()
-    phase_build()
-    engine, dense, questions = phase_setup()
-    checks = phase_kernels(engine)
-    phase_retrieve_scale()
-    served = phase_serve(engine, questions)
-    served_dense = phase_serve_dense(dense, questions)
-    served_plan = phase_serve_plan(engine, questions)
-    phase_check(engine, dense, questions)
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        emit({"phase_seconds": name, "seconds": time.perf_counter() - t0})
+        return out
+
+    dev = timed("device", phase_device)
+    timed("build", phase_build)
+    engine, dense, questions = timed("setup", phase_setup)
+    checks = timed("kernels", phase_kernels, engine)
+    timed("retrieve_scale", phase_retrieve_scale)
+    served = timed("serve", phase_serve, engine, questions)
+    served_dense = timed("serve_dense", phase_serve_dense, dense, questions)
+    served_plan, plan = timed("serve_plan", phase_serve_plan, engine,
+                              questions)
+    disagg = timed("serve_disagg", phase_serve_disagg, engine, questions,
+                   plan)
+    timed("check", phase_check, engine, dense, questions, disagg["cluster"])
+    timed("chaos", phase_chaos, disagg["cluster"], questions)
+    timed("control", phase_control, disagg, questions, plan)
     if profile_decode:
         phase_profile(engine, questions)
 

@@ -147,8 +147,9 @@ class ServingPlan:
 
     def group_sizes(self, max_per_group: int = 4) -> tuple[int, int]:
         """Map the plan's chip split onto disaggregated engine-group sizes
-        ``(n_prefill, n_decode)`` for a disaggregated cluster (the JAX
-        package's ``repro.serving.cluster.RAGCluster``; not ported yet).
+        ``(n_prefill, n_decode)`` for a disaggregated cluster
+        (:class:`~repro_torch.serving.cluster.RAGCluster`, which
+        ``RAGServer.from_plan(..., topology="disagg")`` builds).
 
         The optimizer allocates XPUs to pre-decode groups
         (``group_chips``) and to the decode group (``decode_chips``); a

@@ -138,9 +138,9 @@ class StageRegistry:
 
     def route_groups(self, schema) -> dict[str, list[str]]:
         """Ordered stage names per engine group for one schema -- the
-        cluster's placement contract (the JAX package's
-        ``repro.serving.cluster`` instantiates one engine group per key;
-        the port has no cluster yet)."""
+        cluster's placement contract
+        (:class:`~repro_torch.serving.cluster.RAGCluster` instantiates one
+        engine group per key)."""
         out: dict[str, list[str]] = {"prefill": [], "decode": []}
         for spec in self.ordered():
             if spec.enabled(schema):

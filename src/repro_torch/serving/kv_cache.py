@@ -40,6 +40,17 @@ def to_host(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
+def host_empty(shape, dtype, device) -> np.ndarray:
+    """An empty host array of numpy ``dtype`` (bfloat16 as int16 bits) to
+    stage a copy to ``device``: page-locked when that is a GPU, so the copy
+    runs as one DMA at the link's rate."""
+    dtype = np.dtype(np.int16 if np.dtype(dtype).name == "bfloat16"
+                     else dtype)
+    t = torch.empty(shape, dtype=torch.from_numpy(np.empty(0, dtype)).dtype,
+                    pin_memory=torch.device(device).type == "cuda")
+    return t.numpy()
+
+
 def from_host(a, dtype: torch.dtype, device) -> torch.Tensor:
     """Inverse of :func:`to_host`; also takes ml_dtypes bfloat16 arrays."""
     a = np.ascontiguousarray(np.asarray(a))
@@ -128,11 +139,13 @@ class KVCachePool:
 
     def export_slot(self, slot: int) -> tuple[dict, int]:
         """The slot's valid prefix as host arrays ``{"k","v"}: (L, length,
-        H_kv, D)`` in the pool dtype's exact bytes, and its length."""
+        H_kv, D)`` in the pool dtype's exact bytes, and its length: K and V
+        stacked on the device, then one copy to host memory."""
         length = int(self.lengths[slot])
-        prefix = {k: to_host(v[:, slot, :length])
-                  for k, v in self.cache.items()}
-        return prefix, length
+        names = sorted(self.cache)
+        host = to_host(torch.stack([self.cache[k][:, slot, :length]
+                                    for k in names]))
+        return dict(zip(names, host)), length
 
     def import_slot(self, slot: int, prefix: dict,
                     length: int) -> ImportStats:
@@ -382,25 +395,44 @@ class PagedKVCachePool:
         Every page's valid rows travel as host arrays together with its
         chain key (None for the unkeyed tail), so the payload is
         self-describing: the importer writes the pages it lacks and
-        references the ones its prefix cache already holds."""
+        references the ones its prefix cache already holds.  The pages
+        are fetched with one device gather per K/V into one page-major
+        buffer and one copy to host memory; each page's arrays are views
+        of that host buffer (a full page's are contiguous)."""
         length = int(self.lengths[slot])
         ps = self.page_size
         table = self.page_tables[slot][:-(-length // ps)] if length else []
-        keys, pages = [], {}
-        for j, phys in enumerate(table):
-            n = min(length - j * ps, ps)
-            keys.append(self.key_of.get(phys))
-            pages[j] = {k: to_host(v[:, phys, :n])
-                        for k, v in self.cache.items()}
+        keys = [self.key_of.get(phys) for phys in table]
+        if not table:
+            return PagedPrefix(ps, length, keys, {}), length
+        names = sorted(self.cache)
+        L, h, d = self.cfg.n_layers, self.cfg.n_kv_heads, self.cfg.d_head
+        idx = torch.as_tensor(table, device=self.device)
+        buf = torch.empty((len(names), len(table), L, ps, h, d),
+                          dtype=self.cache[names[0]].dtype,
+                          device=self.device)
+        for i, k in enumerate(names):
+            # (L, P, page, H, D) viewed page-major, pages picked in order
+            torch.index_select(self.cache[k].transpose(0, 1), 0, idx,
+                               out=buf[i])
+        # page-locked on a GPU: the copy runs as one DMA at the link's rate
+        host = torch.empty(buf.shape, dtype=buf.dtype,
+                           pin_memory=self.device.type == "cuda")
+        host = to_host(host.copy_(buf))
+        pages = {j: {k: host[i, j, :, :min(length - j * ps, ps)]
+                     for i, k in enumerate(names)}
+                 for j in range(len(table))}
         return PagedPrefix(ps, length, keys, pages), length
 
     def import_slot(self, slot: int, prefix: PagedPrefix,
                     length: int | None = None) -> ImportStats:
-        """Install a handed-off prefix, page by page.  Keyed pages already
-        present in this pool's prefix cache are referenced (bit-identical
-        by key construction) and their payload is NOT counted as shipped;
-        everything else is written and registered.  Bit-exactness of the
-        round trip is the same contract as the dense pool's."""
+        """Install a handed-off prefix.  Keyed pages already present in
+        this pool's prefix cache are referenced (bit-identical by key
+        construction) and their payload is NOT counted as shipped;
+        everything else is written and registered.  The shipped pages'
+        valid rows go to the device in one host-to-device copy and land
+        with one indexed write per K/V.  Bit-exactness of the round trip
+        is the same contract as the dense pool's."""
         if not isinstance(prefix, PagedPrefix):
             raise TypeError("paged pool can only import a PagedPrefix")
         if prefix.page_size != self.page_size:
@@ -414,7 +446,8 @@ class PagedKVCachePool:
                 f"s_max={self.s_max}; prefill and decode pools must agree")
         assert not self.page_tables[slot], "import_slot into a used slot"
         ps = self.page_size
-        table = []
+        names = sorted(self.cache)
+        table, rows, pages = [], [], []
         shipped_bytes = shipped = shared = 0
         for j in range(-(-p // ps) if p else 0):
             key = prefix.keys[j]
@@ -427,13 +460,31 @@ class PagedKVCachePool:
             payload = prefix.pages[j]
             phys = self._take_page()
             n = payload["k"].shape[1]
-            for k, v in self.cache.items():
-                v[:, phys, :n] = from_host(payload[k], v.dtype, self.device)
+            rows.extend(range(phys * ps, phys * ps + n))
+            pages.append(payload)
             if key is not None:
                 self._register(phys, key)
             table.append(phys)
             shipped += 1
             shipped_bytes += sum(v.nbytes for v in payload.values())
+        if pages:
+            # the shipped rows side by side in one (n_names, L, rows, H_kv,
+            # D) host buffer, then one copy
+            first = np.asarray(pages[0][names[0]])
+            staged = host_empty((len(names), first.shape[0], len(rows),
+                                 *first.shape[2:]), first.dtype, self.device)
+            at = 0
+            for payload in pages:
+                n = payload[names[0]].shape[1]
+                for i, k in enumerate(names):
+                    staged[i, :, at:at + n] = np.asarray(payload[k]).view(
+                        staged.dtype)
+                at += n
+            dev = from_host(staged, self.cache[names[0]].dtype, self.device)
+            row_idx = torch.as_tensor(rows, device=self.device)
+            for i, k in enumerate(names):
+                v = self.cache[k]
+                v.view(v.shape[0], -1, *v.shape[3:])[:, row_idx] = dev[i]
         self.page_tables[slot] = table
         self.lengths[slot] = p
         return ImportStats(shipped_bytes, shipped, shared)

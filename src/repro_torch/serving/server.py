@@ -1,5 +1,5 @@
-"""Open-loop streaming front-end over one port engine (mirror of the
-single-engine half of ``repro.serving.server``).
+"""Open-loop streaming front-end over the port's engine or cluster (mirror
+of ``repro.serving.server``).
 
 ``RAGEngine`` owns the execution machinery; ``RAGServer`` owns traffic:
 requests are submitted one at a time with their own arrival timestamps
@@ -18,11 +18,19 @@ closed-batch ``serve(list)``.  Deadlines are absolute ``time.monotonic``
 seconds; a request whose deadline passes while it is still queued ends
 ``State.EXPIRED`` and is never prefilled.
 
-``from_plan`` deploys an optimizer-chosen ``ServingPlan`` on one
-collocated engine, and ``replay_trace`` replays a JSONL arrival trace
+Topology: the server fronts either ONE collocated engine --
+``RAGServer(engine)`` -- or a disaggregated
+:class:`~repro_torch.serving.cluster.RAGCluster` -- ``RAGServer(cluster)``
+/ ``RAGServer.from_cluster`` / ``RAGServer.from_plan(...,
+topology="disagg")`` -- where prefill and decode engine groups exchange
+requests through a KV-cache handoff.  Submission, streaming, deadline
+screening and replay are the same on both; the cluster adds SLO-aware
+admission and deadline-aware decode-slot scheduling underneath.
+``add_step_hook`` is where a
+:class:`~repro_torch.serving.controller.ClusterController` attaches.
+``replay_trace`` replays a JSONL arrival trace
 (``repro_torch.serving.trace``) against the wall clock.  Not ported yet:
-the disaggregated cluster behind the same front-end (``topology=
-"disagg"`` raises) and span tracing.
+span tracing.
 """
 
 from __future__ import annotations
@@ -32,17 +40,10 @@ from typing import Callable, Iterator
 
 import numpy as np
 
+from repro_torch.serving.cluster import RAGCluster, percentiles
+from repro_torch.serving.engine import RAGEngine
 from repro_torch.serving.request import Request, State
 from repro_torch.serving.telemetry import MetricsRegistry
-
-
-def percentiles(values, digits: int = 5) -> dict:
-    """p50/p95/p99 summary of a latency sample (empty -> None entries)."""
-    out = {}
-    for p in (50, 95, 99):
-        out[f"p{p}"] = (round(float(np.percentile(values, p)), digits)
-                        if len(values) else None)
-    return out
 
 
 class RequestStalledError(RuntimeError):
@@ -120,19 +121,31 @@ class RequestHandle:
 
 class RAGServer:
     """Open-loop serving front-end over one continuously batched
-    :class:`~repro_torch.serving.engine.RAGEngine`."""
+    :class:`~repro_torch.serving.engine.RAGEngine` or a disaggregated
+    :class:`~repro_torch.serving.cluster.RAGCluster`."""
 
     def __init__(self, engine):
-        self.engine = engine
+        """``engine``: a collocated :class:`~repro_torch.serving.engine.
+        RAGEngine` or a :class:`~repro_torch.serving.cluster.RAGCluster`."""
+        self.cluster = engine if isinstance(engine, RAGCluster) else None
+        self.engine = None if self.cluster is not None else engine
         self.handles: dict[int, RequestHandle] = {}
         self._live: list[RequestHandle] = []
+        self._step_hooks: list[Callable[["RAGServer"], None]] = []
         # server-level latency histograms (TTFT/TPOT/latency), fed as
         # requests reach terminal states in _deliver
         self.metrics = MetricsRegistry()
 
+    def add_step_hook(self, fn: Callable[["RAGServer"], None]) -> None:
+        """Register a callback fired after every :meth:`step` (idle steps
+        included): the control plane's attachment point.  Hooks run on
+        every tick, so they must be cheap and rate-limit themselves by
+        wall clock."""
+        self._step_hooks.append(fn)
+
     @property
     def cfg(self):
-        return self.engine.cfg
+        return (self.cluster or self.engine).cfg
 
     @property
     def n_expired(self) -> int:
@@ -144,29 +157,37 @@ class RAGServer:
     @classmethod
     def from_plan(cls, plan, generative, encoder, corpus_tokens, *,
                   rewriter=None, reranker=None, safety=None,
-                  topology: str = "single", device="cuda",
-                  **config_overrides) -> "RAGServer":
+                  topology: str = "single", n_prefill=None, n_decode=None,
+                  device="cuda", **config_overrides) -> "RAGServer":
         """Deploy an optimizer-chosen :class:`~repro_torch.core.serving_plan.
         ServingPlan`: the plan's schema and schedule become the engine
         configuration (``plan.engine_config()``), the caller supplies the
         model components and the corpus.  ``config_overrides`` win last.
 
         ``topology="single"`` runs every stage on one collocated engine on
-        ``device``.  ``"disagg"`` raises ``NotImplementedError``: the
-        disaggregated cluster is not ported yet (ROADMAP queue 1, item 4:
-        the cluster, then the controller)."""
+        ``device``; ``topology="disagg"`` instantiates the plan's
+        placement as a :class:`~repro_torch.serving.cluster.RAGCluster`
+        whose engines all live on ``device`` (prefill and decode groups
+        sized by ``plan.group_sizes()`` unless ``n_prefill``/``n_decode``
+        override them)."""
         if topology in ("disagg", "disaggregated"):
-            raise NotImplementedError(
-                "topology='disagg' needs the disaggregated cluster, which "
-                "the port does not have yet (ROADMAP queue 1, item 4)")
+            return cls(RAGCluster.from_plan(
+                plan, generative, encoder, corpus_tokens,
+                rewriter=rewriter, reranker=reranker, safety=safety,
+                n_prefill=n_prefill, n_decode=n_decode, device=device,
+                **config_overrides))
         if topology not in ("single", "collocated"):
             raise ValueError(f"unknown topology {topology!r}")
-        from repro_torch.serving.engine import RAGEngine
         cfg = plan.engine_config(**config_overrides)
         engine = RAGEngine(generative, encoder, corpus_tokens, cfg,
                            rewriter=rewriter, reranker=reranker,
                            safety=safety, device=device)
         return cls(engine)
+
+    @classmethod
+    def from_cluster(cls, cluster: RAGCluster) -> "RAGServer":
+        """Open-loop front-end over an existing disaggregated cluster."""
+        return cls(cluster)
 
     # ---------------- submission -------------------------------------------
 
@@ -192,7 +213,10 @@ class RAGServer:
                         else time.monotonic())
         req.max_new_tokens = min(req.max_new_tokens,
                                  self.cfg.max_new_tokens)
-        self.engine.queue.append(req)
+        if self.cluster is not None:
+            self.cluster.submit(req)     # may shed (SLO-aware admission)
+        else:
+            self.engine.queue.append(req)
         handle = RequestHandle(self, req, on_token)
         self.handles[req.rid] = handle
         self._live.append(handle)
@@ -202,7 +226,8 @@ class RAGServer:
 
     def _expire(self) -> None:
         """Drop queued requests whose deadline has passed (EXPIRED, never
-        prefilled or decoded)."""
+        prefilled or decoded).  Single-engine path: the cluster runs its
+        own deadline sweep over its waiting pools."""
         queue = self.engine.queue
         if not any(r.deadline is not None for r in queue):
             return
@@ -238,35 +263,60 @@ class RAGServer:
                 "tpot_s", (req.latency - req.ttft) / (len(req.output) - 1))
 
     def _busy(self) -> bool:
+        if self.cluster is not None:
+            return self.cluster.busy
         return bool(self.engine.queue or self.engine.active)
 
     def step(self) -> bool:
-        """One serving iteration (admit -> chunked-prefill advance ->
-        iterative dispatch -> decode) + token delivery.  Returns True while
-        work remains; idle calls dispatch nothing."""
-        self._expire()
-        if not self._busy():
-            self._deliver()
-            return False
-        self.engine.tick()
+        """One serving iteration + token delivery, then the step hooks.
+        Single engine: admit -> chunked-prefill advance -> iterative
+        dispatch -> decode.  Cluster: health and deadline sweeps ->
+        prefill dispatch -> KV handoff and decode-slot assignment -> decode
+        tick.  Returns True while work remains; idle calls dispatch
+        nothing."""
+        if self.cluster is not None:
+            more = self.cluster.step()
+        else:
+            self._expire()
+            more = self._busy()
+            if more:
+                self.engine.tick()
+                more = self._busy()
         self._deliver()
-        return self._busy()
+        for fn in self._step_hooks:
+            fn(self)
+        return more
+
+    def _flush(self) -> None:
+        """Force out sub-batch iterative retrievals (drain tail)."""
+        if self.cluster is not None:
+            self.cluster.flush()
+        else:
+            self.engine._dispatch_iterative(force=True)
+
+    def _abort(self, req: Request, reason: str, now=None) -> None:
+        if self.cluster is not None:
+            self.cluster.abort_request(req, reason, now)
+        else:
+            self.engine.abort_request(req, reason, now)
 
     def run_until_idle(self, max_steps: int = 10000) -> int:
         """Drain all submitted work; returns the steps taken.  Requests
-        still in flight when the budget runs out end ``State.FAILED``."""
+        still in flight when the budget runs out end ``State.FAILED``
+        (their slots released), so every submitted request ends
+        terminal."""
         steps = 0
         while steps < max_steps and self.step():
             steps += 1
-        self.engine._dispatch_iterative(force=True)
+        self._flush()
         self._deliver()
         if self._busy():
             now = time.monotonic()
             for h in list(self.handles.values()):
                 if not h.request.done:
-                    self.engine.abort_request(
-                        h.request,
-                        f"step budget exhausted after {steps} steps", now)
+                    self._abort(h.request,
+                                f"step budget exhausted after {steps} steps",
+                                now)
             self._deliver()
         return steps
 
@@ -313,7 +363,7 @@ class RAGServer:
             steps += 1
             if steps >= max_steps:
                 break
-        self.engine._dispatch_iterative(force=True)
+        self._flush()
         self._deliver()
         return handles
 

@@ -10,7 +10,8 @@
   ``tests/test_torch_engine.py`` (the JAX side on ``attn_impl="ref"``, the
   IVF-PQ index carried across), under that file's near-tie rule.
 * ``replay_trace`` of a saved JSONL trace, the trace generators, and
-  ``topology="disagg"`` (not ported: it raises).
+  the topologies ``from_plan`` takes (``"disagg"`` builds the cluster of
+  ``tests/test_torch_cluster.py``; an unknown one raises).
 """
 
 import dataclasses
@@ -178,12 +179,17 @@ def test_from_plan_serves_as_jax(stack, preset):
 
 
 def test_disaggregated_topology_is_not_ported(stack):
+    """The name dates from before the cluster was ported: ``"disagg"``
+    now deploys the plan's groups, and an unknown topology still raises."""
     gen, enc, corpus, _ = stack
     plan = ServingPlan.optimize(tpipes.baseline(), thw.SystemConfig(
         n_servers=2, xpu=thw.XPU_C))
-    with pytest.raises(NotImplementedError, match="cluster"):
-        RAGServer.from_plan(plan, _port(gen), _port(enc), corpus,
-                            topology="disagg", device="cpu")
+    server = RAGServer.from_plan(plan, _port(gen), _port(enc), corpus,
+                                 topology="disagg", device="cpu",
+                                 decode_slots=2, s_max=96, max_new_tokens=4)
+    assert server.engine is None
+    assert (len(server.cluster.prefill_engines),
+            len(server.cluster.decode_engines)) == plan.group_sizes()
     with pytest.raises(ValueError, match="topology"):
         RAGServer.from_plan(plan, _port(gen), _port(enc), corpus,
                             topology="mesh", device="cpu")
