@@ -35,6 +35,14 @@ lines (and its seconds as a ``phase_seconds`` line), in order:
                where a search's time goes
   serve        16 Poisson-arriving questions through the paged engine;
                every kernel's launch count over this phase alone
+  trace        span tracing's cost on serve's warm engine: the 16
+               questions as one closed batch, 3 times untraced and 3
+               times with a fresh ``SpanTracer``, alternating; the min
+               wall of each arm and its range, the overhead, spans and
+               drops, the span-derived latencies against the request
+               fields, ``slo_summary``, and each run's launches and host
+               syncs, which must be equal in both arms; a seventh,
+               traced run sums the host time spent inside the tracer
   serve_dense  8 Poisson-arriving questions through the dense engine and
                its five stage executors; launch counts over this phase
   serve_plan   the plan for ``iterative`` on 1 x 4 H100s, deployed on
@@ -45,7 +53,10 @@ lines (and its seconds as a ``phase_seconds`` line), in order:
                prefill engines + 1 decode engine (``plan.group_sizes()``)
                on this card, the same trace; TTFT/TPOT per group, the
                handoff's bytes and its export / checksum / verify / import
-               times per request; launch counts over this phase
+               times per request; launch counts over this phase; traced,
+               its Perfetto trace and span log written to ``build/traces/``
+               and read back (serve_plan's engine is collected first, so
+               the peak memory is this phase's)
   check        teacher-forced decode step on each pool and teacher-forced
                prefill, kernel vs plain attention; IVF-PQ search with and
                without the scan kernel; disagg parity (4 questions one at
@@ -53,15 +64,19 @@ lines (and its seconds as a ``phase_seconds`` line), in order:
                tokens) and a handed-off slot read back bit-equal
   chaos        every ``CHAOS_SCHEDULES`` entry on a 2+2 cluster (8 decode
                slots, 16 tokens, 4 questions): every request terminal
-               once, nothing leaked, retry parity with the unfaulted run
+               once, nothing leaked, retry parity with the unfaulted run;
+               each run traced: a FAULT event a firing, a RETRY a retry
   control      a ``ClusterController`` on serve_disagg's cluster: the
                H100 spec calibrated from its measurements and the re-plan
                on it, then ``resize(2, 2)`` and ``resize(2, 1)`` during a
-               fresh replay of the trace, no request dropped
+               fresh replay of the trace, no request dropped; traced: a
+               CONTROL event a controller event, a MIGRATE a migration
 
 then the ``{"kernels": [...]}`` line, the raw ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``.  Any failed check raises
-and the script exits non-zero without that last line.  It needs a CUDA
+and the script exits non-zero without that last line; every traced phase
+fails on a span left open, a dropped span or any other
+``validate_spans`` violation.  It needs a CUDA
 device and the repository around it.
 
     python3 chip_smoke.py             # every phase above
@@ -920,6 +935,154 @@ def check_served(engine, handles, questions, snap,
         raise AssertionError(f"attn_impl resolved to {snap['attn_impl']}")
 
 
+TRACE_REPEATS = 3
+#: where serve_disagg's trace is written (git-ignored through build/)
+TRACE_DIR = ROOT / "build" / "traces"
+
+
+def check_trace(tracer, reqs, label: str) -> dict:
+    """A phase's trace is complete and well formed (``validate_spans``:
+    every span ended, one SUBMIT and one TERMINAL a request, retry
+    attempts disjoint); returns its span counts by kind."""
+    from repro_torch.serving.telemetry import validate_spans
+    violations = validate_spans(tracer, reqs)
+    if violations or tracer.dropped:
+        raise AssertionError(f"{label} trace: {tracer.dropped} spans "
+                             f"dropped, violations {violations[:5]}")
+    kinds = {}
+    for sp in tracer.spans():
+        kinds[sp.kind] = kinds.get(sp.kind, 0) + 1
+    return {"spans": len(tracer.spans()), "dropped": tracer.dropped,
+            "violations": 0, "kinds": kinds}
+
+
+def latency_crosscheck(tracer, reqs) -> dict:
+    """Largest gap between the span-derived TTFT and TPOT and the request
+    fields (a span closes a few microseconds after the field it mirrors
+    is stamped)."""
+    from repro_torch.serving.telemetry import derive_latencies
+    err, n = 0.0, 0
+    for r in reqs:
+        d = derive_latencies(tracer, r)
+        if d["ttft"] is None or r.ttft is None:
+            continue
+        err = max(err, abs(d["ttft"] - r.ttft))
+        n += 1
+        if d["tpot"] is not None and len(r.output) > 1:
+            start = r.t_decode if r.t_decode is not None else r.t_first_token
+            err = max(err, abs(d["tpot"]
+                               - (r.t_done - start) / (len(r.output) - 1)))
+    return {"n": n, "max_err_s": err}
+
+
+def self_timed_tracer():
+    """A ``SpanTracer`` that sums the host time spent inside its own calls
+    (outermost calls only: ``terminal`` calls ``close_open`` and
+    ``event``).  What the call sites add around a call (the ``enabled``
+    test, building an ``attrs`` dict) is not in it."""
+    from repro_torch.serving.telemetry import SpanTracer
+
+    class SelfTimedTracer(SpanTracer):
+        def __init__(self):
+            super().__init__()
+            self.self_s, self.calls, self._inside = 0.0, 0, False
+
+    def timed(method):
+        def call(self, *args, **kwargs):
+            if self._inside:
+                return method(self, *args, **kwargs)
+            self._inside = True
+            t0 = time.perf_counter()
+            try:
+                return method(self, *args, **kwargs)
+            finally:
+                self.self_s += time.perf_counter() - t0
+                self.calls += 1
+                self._inside = False
+        return call
+
+    for name in ("event", "record", "begin", "end", "end_kind", "annotate",
+                 "close_open", "terminal"):
+        setattr(SelfTimedTracer, name, timed(getattr(SpanTracer, name)))
+    return SelfTimedTracer()
+
+
+def phase_trace(engine, questions) -> dict:
+    """What span tracing costs on the card and what it records: on serve's
+    warm engine, the 16 questions as one closed batch, 3 times with the
+    tracer off and 3 times with a fresh ``SpanTracer``, alternating (as
+    the reference's ``run_telemetry`` does).  The overhead is the min of
+    each arm, reported and not gated (host noise moves walls by tens of
+    percent between runs); a seventh, traced run with
+    :func:`self_timed_tracer` gives the host time spent inside the
+    tracer itself, which that noise does not blur.  Every traced run must
+    be well formed, and every run must launch the same kernels and sync
+    the host as often: tracing adds no device work and no
+    synchronisation."""
+    import torch
+    from repro_torch.serving.request import Request, State
+    from repro_torch.serving.telemetry import SpanTracer, slo_summary
+
+    arms = ("off", "on", "self_timed")
+    walls, runs, tokens = ({a: [] for a in arms} for _ in range(3))
+    make = {"off": lambda: None, "on": SpanTracer,
+            "self_timed": self_timed_tracer}
+    traced = None
+    for mode in ("off", "on") * TRACE_REPEATS + ("self_timed",):
+        tracer = make[mode]()
+        engine.set_tracer(tracer)
+        batch = [Request(question=q.copy()) for q in questions]
+        syncs = (engine.metrics["host_syncs"],
+                 engine.metrics["decode_host_syncs"])
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.serve(batch)
+        torch.cuda.synchronize()
+        walls[mode].append(time.perf_counter() - t0)
+        runs[mode].append({
+            "launches": read_launches(),
+            "host_syncs": engine.metrics["host_syncs"] - syncs[0],
+            "decode_host_syncs":
+                engine.metrics["decode_host_syncs"] - syncs[1]})
+        tokens[mode].append([r.output for r in batch])
+        bad = [r.rid for r in batch if r.state is not State.DONE
+               or len(r.output) != NEW_TOKENS]
+        if bad:
+            raise AssertionError(f"trace {mode}: requests {bad} not served")
+        if tracer is not None:
+            counts = check_trace(tracer, batch, f"trace {mode}")
+            if mode == "on":
+                traced = (tracer, batch, counts)
+    engine.set_tracer(None)
+    timer = tracer
+    tracer, batch, counts = traced
+    off, on = min(walls["off"]), min(walls["on"])
+    result = {
+        "phase": "trace", "requests": len(questions),
+        "new_tokens": NEW_TOKENS, "repeats": TRACE_REPEATS,
+        "untraced_wall_s": off, "traced_wall_s": on,
+        "untraced_range_s": [off, max(walls["off"])],
+        "traced_range_s": [on, max(walls["on"])],
+        "walls_s": walls, "overhead_frac": on / off - 1.0,
+        "tracer_self_s": timer.self_s, "tracer_calls": timer.calls,
+        "tracer_us_per_call": timer.self_s / timer.calls * 1e6,
+        "tracer_self_frac": timer.self_s / off,
+        **counts, "latency_crosscheck": latency_crosscheck(tracer, batch),
+        "slo": slo_summary(tracer, batch),
+        "runs": runs, "tokens_equal_across_arms":
+            all(t == tokens["off"][0] for arm in tokens.values()
+                for t in arm)}
+    emit(result)
+    first = runs["off"][0]
+    if any(r != first for arm in runs.values() for r in arm):
+        raise AssertionError(f"trace: launches or host syncs differ "
+                             f"between runs: {runs}")
+    if first["launches"]["paged_decode_attention"] == 0:
+        raise AssertionError("trace: the paged kernel did not run")
+    return result
+
+
 def phase_serve_dense(dense, questions) -> dict:
     """The dense pool behind every stage of full_pipeline: rewrite (32
     tokens), fan-out (one 16-token variant), IVF-PQ retrieval of 16
@@ -1134,11 +1297,14 @@ def phase_serve_disagg(engine, questions, plan) -> dict:
     not what disaggregation buys across chips."""
     import torch
     from repro_torch.serving.server import RAGServer
+    from repro_torch.serving.telemetry import (SpanTracer, export_jsonl,
+                                               export_perfetto, load_spans)
 
     questions = questions[:N_PLAN_QUESTIONS]
     reset_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()      # serve's and serve_dense's
     t0 = time.perf_counter()
     server = RAGServer.from_plan(plan, engine.gen, engine.enc, engine.corpus,
                                  topology="disagg", device=engine.device)
@@ -1149,6 +1315,8 @@ def phase_serve_disagg(engine, questions, plan) -> dict:
     if groups != plan.group_sizes() or groups != EXPECTED_GROUPS:
         raise AssertionError(f"disagg groups {groups}, plan "
                              f"{plan.group_sizes()}")
+    tracer = SpanTracer()
+    server.set_tracer(tracer)
     t0 = time.perf_counter()
     handles = server.replay_trace(PLAN_TRACE)
     torch.cuda.synchronize()
@@ -1156,6 +1324,25 @@ def phase_serve_disagg(engine, questions, plan) -> dict:
     launches = read_launches()
     summary = server.summary()
     group = cluster.group_summary()
+    reqs = [h.request for h in handles]
+    trace = check_trace(tracer, reqs, "serve_disagg")
+    TRACE_DIR.mkdir(parents=True, exist_ok=True)
+    perfetto, jsonl = TRACE_DIR / "serve_disagg.json", \
+        TRACE_DIR / "serve_disagg.jsonl"
+    export_perfetto(tracer, perfetto)
+    export_jsonl(tracer, jsonl)
+    with open(perfetto) as f:
+        doc = json.load(f)
+    rows = load_spans(jsonl)
+    trace.update({
+        "perfetto": str(perfetto.relative_to(ROOT)),
+        "jsonl": str(jsonl.relative_to(ROOT)),
+        "tracks": sum(e["ph"] == "M" and e["name"] == "thread_name"
+                      for e in doc["traceEvents"]),
+        "perfetto_events": sum(e["ph"] != "M" for e in doc["traceEvents"]),
+        "jsonl_spans": len(rows),
+        "latency_crosscheck": latency_crosscheck(tracer, reqs),
+        "slo": group["slo"]})
     engines = cluster.prefill_engines + cluster.decode_engines
     snaps = [e.metrics_snapshot() for e in engines]
     decode_snap = snaps[-1]
@@ -1189,9 +1376,23 @@ def phase_serve_disagg(engine, questions, plan) -> dict:
         "kv_pages": {"prefill": cluster.prefill_engines[0].pool.n_pages,
                      "decode": cluster.decode_engines[0].pool.n_pages},
         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "held_before_deploy_bytes": held,
         "attn_impl": [sn["attn_impl"] for sn in snaps],
-        "launches": launches, "first_output": handles[0].output[:8]}
+        "launches": launches, "first_output": handles[0].output[:8],
+        "trace": trace}
     emit(result)
+    server.set_tracer(None)
+    handoff_spans = trace["kinds"].get("HANDOFF", 0)
+    metered = [k for k in trace["kinds"] if k in {
+        f"STAGE:{step}" for step, _ in HANDOFF_STEPS}]
+    if handoff_spans != n_handoffs or metered:
+        raise AssertionError(f"serve_disagg trace: {handoff_spans} HANDOFF "
+                             f"spans for {n_handoffs} handoffs, handoff "
+                             f"steps traced as spans: {metered}")
+    if (trace["jsonl_spans"] != trace["spans"]
+            or trace["perfetto_events"] != trace["spans"]
+            or trace["tracks"] != 1 + len(engines) + len(reqs)):
+        raise AssertionError(f"serve_disagg trace files: {trace}")
     if any(sn["attn_impl"] != "cuda" for sn in snaps):
         raise AssertionError("an engine of the cluster is not on the "
                              "CUDA attention kernels")
@@ -1515,21 +1716,36 @@ def phase_chaos(disagg_cluster, questions) -> dict:
                                             FaultPlan)
     from repro_torch.serving.request import TERMINAL_STATES, State
     from repro_torch.serving.server import RAGServer
+    from repro_torch.serving.telemetry import SpanTracer
 
     base = disagg_cluster.prefill_engines[0]
     cfg = dataclasses.replace(disagg_cluster.cfg, decode_slots=8,
                               max_new_tokens=CHAOS_TOKENS)
     questions = questions[:N_CHAOS_QUESTIONS]
 
-    def run(injector):
+    def run(injector, name):
+        """One traced run; its trace must be well formed, every firing a
+        FAULT event and every retry a RETRY event."""
         cluster = chaos_cluster(base, cfg, injector)
-        server = RAGServer(cluster)
+        tracer = SpanTracer()
+        server = RAGServer(cluster, tracer=tracer)
         handles = [server.submit(q.copy()) for q in questions]
         server.run_until_idle(max_steps=5000)
-        return cluster, [h.request for h in handles]
+        reqs = [h.request for h in handles]
+        trace = check_trace(tracer, reqs, f"chaos {name}")
+        kinds = trace["kinds"]
+        fired = len(injector.log) if injector is not None else 0
+        faults = sum(n for k, n in kinds.items() if k.startswith("FAULT:"))
+        retries = sum(r.retries for r in reqs)
+        if faults != fired or kinds.get("RETRY", 0) != retries:
+            raise AssertionError(f"chaos {name} trace: {faults} FAULT "
+                                 f"events for {fired} firings, "
+                                 f"{kinds.get('RETRY', 0)} RETRY events "
+                                 f"for {retries} retries")
+        return cluster, reqs, trace
 
     t0 = time.perf_counter()
-    cluster, ref = run(None)
+    cluster, ref, _ = run(None, "unfaulted")
     if any(r.state is not State.DONE for r in ref):
         raise AssertionError("unfaulted chaos run: not every request DONE")
     check_no_leaks(cluster)
@@ -1539,7 +1755,7 @@ def phase_chaos(disagg_cluster, questions) -> dict:
     for name, schedule in sorted(CHAOS_SCHEDULES.items()):
         t0 = time.perf_counter()
         inj = FaultInjector(FaultPlan.from_schedule(schedule, seed=7))
-        cluster, reqs = run(inj)
+        cluster, reqs, trace = run(inj, name)
         for r in reqs:
             if (r.state not in TERMINAL_STATES
                     or sum(s in TERMINAL_STATES
@@ -1581,8 +1797,16 @@ def phase_chaos(disagg_cluster, questions) -> dict:
             "parity_checked": sum(r.state is State.DONE and not r.degraded
                                   and r.retrieved_ids == u.retrieved_ids
                                   for r, u in zip(reqs, ref)),
-            "counters": {k: v for k, v in scheduler.items() if v}}
+            "counters": {k: v for k, v in scheduler.items() if v},
+            "trace": {k: trace[k] for k in ("spans", "dropped",
+                                            "violations")},
+            "trace_events": {k: n for k, n in trace["kinds"].items()
+                             if k.startswith("FAULT:")
+                             or k in ("RETRY", "MIGRATE")}}
     emit(out)
+    if not any(s["trace_events"].get("RETRY")
+               for s in out["schedules"].values()):
+        raise AssertionError("chaos: no schedule traced a RETRY")
     return out
 
 
@@ -1602,6 +1826,7 @@ def phase_control(disagg, questions, plan) -> dict:
     from repro_torch.serving.engine import RAGEngine
     from repro_torch.serving.request import State
     from repro_torch.serving.server import RAGServer
+    from repro_torch.serving.telemetry import SpanTracer
 
     cluster = disagg["cluster"]
     base = cluster.prefill_engines[0]
@@ -1615,6 +1840,8 @@ def phase_control(disagg, questions, plan) -> dict:
                          device=base.device)
 
     server = RAGServer.from_cluster(cluster)
+    tracer = SpanTracer()
+    server.set_tracer(tracer)
     ctl = ClusterController(server, schema, system, plan,
                             engine_factory=factory)
     xpu, host, record = ctl.measured_specs()
@@ -1657,6 +1884,11 @@ def phase_control(disagg, questions, plan) -> dict:
     wall = time.perf_counter() - t0
     summary = server.summary()
     m = cluster.metrics
+    trace = check_trace(tracer, [h.request for h in handles], "control")
+    control = {k: n for k, n in trace["kinds"].items()
+               if k.startswith("CONTROL:")}
+    trace["migrate_events"] = trace["kinds"].get("MIGRATE", 0)
+    migrated = sum(h.request.migrations for h in handles)
     result = {"phase": "control", "wall_s": wall,
               "n_done": summary["n_done"], "n_submitted": len(handles),
               "ttft_s": summary["ttft_s"], "tpot_s": summary["tpot_s"],
@@ -1666,8 +1898,20 @@ def phase_control(disagg, questions, plan) -> dict:
               "requests_migrated": m["requests_migrated"],
               "retired": [(g, eid) for g, eid, _ in cluster.retired],
               "groups": {"prefill": len(cluster.prefill_engines),
-                         "decode": len(cluster.decode_engines)}}
+                         "decode": len(cluster.decode_engines)},
+              "trace": {**{k: trace[k] for k in ("spans", "dropped",
+                                                 "violations",
+                                                 "migrate_events")},
+                        "control_events": control,
+                        "controller_events": len(ctl.events)}}
     emit(result)
+    server.set_tracer(None)
+    if sum(control.values()) != len(ctl.events) or \
+            trace["migrate_events"] != migrated or not migrated:
+        raise AssertionError(f"control trace: {control} for "
+                             f"{len(ctl.events)} controller events, "
+                             f"{trace['migrate_events']} MIGRATE events for "
+                             f"{migrated} migrations")
     if [h.state for h in handles] != [State.DONE] * len(handles) or \
             len(handles) != N_PLAN_QUESTIONS:
         raise AssertionError(f"control: {[h.state for h in handles]}")
@@ -1683,6 +1927,18 @@ def phase_control(disagg, questions, plan) -> dict:
                    + cluster.decode_engines + retired)
     result["specs"] = specs
     return result
+
+
+def release_device_memory() -> None:
+    """Collect what an earlier phase left (serve_plan's server, engine and
+    handles hold one another in a reference cycle), hand its blocks back
+    to the device and restart the peak statistic, so the next phase's
+    peak is its own."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
 
 
 def phase_profile(engine, questions, ticks: int = 5) -> dict:
@@ -1760,9 +2016,11 @@ def main() -> int:
     checks = timed("kernels", phase_kernels, engine)
     timed("retrieve_scale", phase_retrieve_scale)
     served = timed("serve", phase_serve, engine, questions)
+    timed("trace", phase_trace, engine, questions)
     served_dense = timed("serve_dense", phase_serve_dense, dense, questions)
     served_plan, plan = timed("serve_plan", phase_serve_plan, engine,
                               questions)
+    release_device_memory()
     disagg = timed("serve_disagg", phase_serve_disagg, engine, questions,
                    plan)
     timed("check", phase_check, engine, dense, questions, disagg["cluster"])

@@ -81,12 +81,10 @@ once (``export_slot``), the payload is checksummed there, and the decode
 engine's pool verifies it and writes the pages it lacks with one copy back
 (``import_slot``).  Each of the four steps is timed into its engine's
 ``stage_time_s`` (``export`` and ``checksum`` on the prefill engine,
-``verify`` and ``import`` on the decode engine).  Every engine of a
-cluster runs on one device and one Python thread, so on one card the
-groups take turns rather than run side by side.
-
-Not ported yet: span tracing (``set_tracer`` refuses an enabled tracer)
-and with it the ``slo`` entry of :meth:`RAGCluster.group_summary`.
+``verify`` and ``import`` on the decode engine) and emits no span
+(:meth:`RAGEngine._metered`), so a trace holds the JAX cluster's spans.
+Every engine of a cluster runs on one device and one Python thread, so
+on one card the groups take turns rather than run side by side.
 """
 
 from __future__ import annotations
@@ -99,9 +97,11 @@ import numpy as np
 from repro_torch.serving.engine import RAGEngine
 from repro_torch.serving.faults import (EngineCrash, EngineHealth,
                                         FaultInjector, TransientStageError)
-from repro_torch.serving.kv_cache import payload_checksum, payload_nbytes
+from repro_torch.serving.kv_cache import (payload_checksum, payload_nbytes,
+                                          payload_summary)
 from repro_torch.serving.request import Request, State
-from repro_torch.serving.telemetry import NULL_TRACER, MetricsRegistry
+from repro_torch.serving.telemetry import (NULL_TRACER, MetricsRegistry,
+                                           slo_summary)
 
 
 def percentiles(values, digits: int = 5) -> dict:
@@ -243,6 +243,10 @@ class RAGCluster:
         """Enqueue one request; shed it instantly if the plan-predicted
         TTFT says its deadline is already unmeetable (the optimizer's
         prediction doing admission control)."""
+        if self.tracer.enabled and req.tracer is None:
+            # direct submitters (no RAGServer in front) still get the
+            # terminal-state span hook
+            req.tracer = self.tracer
         self.requests.append(req)
         if (req.deadline is not None and self.predicted_ttft is not None
                 and req.t_arrive + self.predicted_ttft > req.deadline):
@@ -274,14 +278,10 @@ class RAGCluster:
         return eid
 
     def set_tracer(self, tracer) -> None:
-        """Install one span tracer across the whole cluster.  The port
-        has no span tracer yet, so only ``None`` or a disabled tracer
-        (``NULL_TRACER``) is accepted."""
-        if tracer is not None and tracer.enabled:
-            raise NotImplementedError(
-                "span tracing of the cluster is not ported yet (ROADMAP "
-                "queue 1: tracing is the next slice)")
-        self.tracer = NULL_TRACER
+        """Install one span tracer across the whole cluster: every engine
+        (live and future, via :meth:`_attach`) and the fault injector emit
+        onto it.  ``None``/``NULL_TRACER`` turns tracing off."""
+        self.tracer = tracer if tracer is not None else NULL_TRACER
         for eng in self.prefill_engines + self.decode_engines:
             eng.set_tracer(self.tracer)
         if self.injector is not None:
@@ -569,6 +569,9 @@ class RAGCluster:
         (``finally``), so an exception can never leak it; the caller
         (:meth:`_dispatch_prefill`) classifies the failure and recovers
         the request."""
+        if self.tracer.enabled:
+            self.tracer.event("ADMIT", rid=req.rid, engine=eng.trace_name,
+                              attempt=req.retries + req.migrations)
         inj = self.injector
         if inj is not None and inj.fire("stage_error", engine=eid,
                                         rid=req.rid):
@@ -587,21 +590,28 @@ class RAGCluster:
             with eng._timed("prefill", req=req):
                 eng.prefill_compute(req, slot)
             # ends in the copy to host memory, which waits for the device
-            with eng._timed("export", req=req):
+            with eng._metered("export"):
                 kv, length = eng.pool.export_slot(slot)
         finally:
             eng.pool.release(slot)
         # checksum at export; verified before import, so wire corruption
         # is rejected instead of decoded
-        with eng._timed("checksum", req=req):
+        with eng._metered("checksum"):
             checksum = payload_checksum(kv)
         full_bytes = payload_nbytes(kv)
+        kv_summary = payload_summary(kv, length)   # before any injection
         if inj is not None:
             if inj.fire("handoff_drop", engine=eid, rid=req.rid):
                 kv = None                      # lost "on the wire"
             elif inj.fire("handoff_corrupt", engine=eid, rid=req.rid):
                 kv = inj.corrupt(kv)
         req.state = State.HANDOFF
+        if self.tracer.enabled:
+            # open until the decode-side import succeeds (or a retry /
+            # expiry closes it): the span measures queue + transit time
+            self.tracer.begin("HANDOFF", rid=req.rid, engine=eng.trace_name,
+                              attempt=req.retries + req.migrations,
+                              attrs=kv_summary)
         self.prefill_history.setdefault(req.rid, []).append(eid)
         self.prefill_of[req.rid] = eid
         self._prefill_load[eid] += len(req.prompt)
@@ -671,7 +681,7 @@ class RAGCluster:
             if not eng.pool.free:
                 waiting.append(item)        # every healthy engine is full
                 continue
-            with eng._timed("verify", req=req):
+            with eng._metered("verify"):
                 intact = payload_checksum(kv) == checksum
             if not intact:
                 self.metrics["handoff_corrupt"] += 1
@@ -681,7 +691,7 @@ class RAGCluster:
             try:
                 # the host-to-device copy waits for the device; the
                 # indexed write after it is left queued
-                with eng._timed("import", req=req):
+                with eng._metered("import"):
                     stats = eng.pool.import_slot(slot, kv, length)
             except Exception as e:             # malformed payload
                 eng.pool.release(slot)
@@ -694,6 +704,16 @@ class RAGCluster:
             self.metrics["handoff_pages_shared"] += stats.pages_shared
             req.slot = slot
             req.t_decode = time.monotonic()
+            if self.tracer.enabled:
+                self.tracer.end_kind(
+                    req.rid, "HANDOFF", t=req.t_decode,
+                    attrs={"bytes_shipped": stats.nbytes,
+                           "pages": stats.pages,
+                           "pages_shared": stats.pages_shared})
+                self.tracer.begin("DECODE", rid=req.rid,
+                                  engine=eng.trace_name, t=req.t_decode,
+                                  attempt=req.retries + req.migrations,
+                                  attrs={"slot": slot})
             req.state = State.DECODE
             eng.active[slot] = req
             self.decode_history.setdefault(req.rid, []).append(eid)
@@ -853,6 +873,10 @@ class RAGCluster:
             },
             "scheduler": scheduler,
         }
+        if self.tracer.enabled:
+            # span-derived deadline-budget attribution (queue vs stages vs
+            # prefill vs handoff vs decode) across terminal requests
+            out["slo"] = slo_summary(self.tracer, self.requests)
         return out
 
     def describe(self) -> str:

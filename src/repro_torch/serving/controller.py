@@ -352,6 +352,14 @@ class ClusterController:
             "calibration": new_plan.detail.get("calibration", {}),
             "target": {"prefill": target_p, "decode": target_d},
         })
+        tracer = getattr(self.server, "tracer", None)
+        if tracer is not None and tracer.enabled:
+            # cluster-scope instant (no rid/engine -> controller track)
+            tracer.event("CONTROL:replan", t=now,
+                         attrs={"trigger": trigger,
+                                "offered_qps": sample.offered_qps,
+                                "target_prefill": target_p,
+                                "target_decode": target_d})
         self.plan = new_plan
         self.resize(target_p, target_d, now)
         # the new deployment defines the new reference regime
@@ -404,4 +412,11 @@ class ClusterController:
                                 "added": added, "drained": drained,
                                 "target": {"prefill": target_prefill,
                                            "decode": target_decode}})
+            tracer = getattr(self.server, "tracer", None)
+            if tracer is not None and tracer.enabled:
+                tracer.event("CONTROL:resize", t=now,
+                             attrs={"added": dict(added),
+                                    "drained": dict(drained),
+                                    "target_prefill": target_prefill,
+                                    "target_decode": target_decode})
         return {"added": added, "drained": drained}

@@ -308,14 +308,25 @@ class RAGEngine:
         return any(ex.name == name for ex in self.executors)
 
     def set_tracer(self, tracer) -> None:
+        """Install a span tracer (``None`` or ``NULL_TRACER`` turns tracing
+        off)."""
         self.tracer = tracer if tracer is not None else NULL_TRACER
+
+    def _account(self, stage: str, seconds: float) -> None:
+        acc = self.metrics["stage_time_s"]
+        acc[stage] = acc.get(stage, 0.0) + seconds
+        self.metrics.observe("stage_seconds:" + stage, seconds)
 
     @contextmanager
     def _timed(self, stage: str, req: Request | None = None, attrs=None):
-        """Accumulate wall time into ``metrics['stage_time_s'][stage]`` and
-        a per-stage latency histogram.  Work queued on the device inside
-        the stage counts where its result is read back (each stage below
-        ends in a host copy of its result)."""
+        """Accumulate wall time into ``metrics['stage_time_s'][stage]``, a
+        per-stage latency histogram, and (when tracing) a span.  Work
+        queued on the device inside the stage counts where its result is
+        read back (each stage below ends in a host copy of its result).
+
+        With ``req`` the span is request-scoped (opened, so executors can
+        :meth:`SpanTracer.annotate` payload sizes onto it mid-stage);
+        without, it lands on this engine's track."""
         t0 = time.monotonic()
         tracer = self.tracer
         span = None
@@ -329,15 +340,28 @@ class RAGEngine:
             yield
         finally:
             t1 = time.monotonic()
-            acc = self.metrics["stage_time_s"]
-            acc[stage] = acc.get(stage, 0.0) + t1 - t0
-            self.metrics.observe("stage_seconds:" + stage, t1 - t0)
+            self._account(stage, t1 - t0)
             if span is not None:
                 tracer.end(span, t=t1)
             elif tracer.enabled:
                 tracer.record(stage_kind(stage), t0, t1,
                               engine=self.trace_name, tick=self.tick_no,
                               attrs=attrs)
+
+    @contextmanager
+    def _metered(self, stage: str):
+        """:meth:`_timed` without a span: the stage's wall time feeds
+        ``stage_time_s`` and its histogram only.  The cluster meters the
+        KV handoff's steps (export, checksum, verify, import) this way.
+        The JAX cluster does not time them, and ``verify`` and ``import``
+        fall inside the request's open ``HANDOFF`` span, which
+        :func:`~repro_torch.serving.telemetry.request_breakdown` would
+        then count twice."""
+        t0 = time.monotonic()
+        try:
+            yield
+        finally:
+            self._account(stage, time.monotonic() - t0)
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -418,10 +442,19 @@ class RAGEngine:
         req.output.append(tok)
         req.t_first_token = time.monotonic()
         self.metrics["prefills"] += 1
+        if self.tracer.enabled:
+            # lands on the enclosing PREFILL span (payload attribution)
+            self.tracer.annotate(req.rid, prompt_tokens=length,
+                                 prefill_bucket=bucket)
 
     def _admit(self) -> None:
         while self.queue and self.pool.free:
             req = self.queue.pop(0)
+            tracer = self.tracer
+            if tracer.enabled:
+                tracer.event("ADMIT", rid=req.rid, engine=self.trace_name,
+                             tick=self.tick_no,
+                             attempt=req.retries + req.migrations)
             for ex in self.executors:
                 with self._timed(ex.name, req=req):
                     ex.run(self, req)
@@ -437,6 +470,12 @@ class RAGEngine:
                 with self._timed("prefill", req=req):
                     self._prefill(req, slot)
                 self.active[req.slot] = req
+                if tracer.enabled:
+                    # decode-slot residency: open until DONE/retry closes it
+                    tracer.begin("DECODE", rid=req.rid,
+                                 engine=self.trace_name, tick=self.tick_no,
+                                 attempt=req.retries + req.migrations,
+                                 attrs={"slot": req.slot})
 
     def _prefill_tick(self) -> None:
         """Advance every chunk-prefilling slot by one prompt chunk; the
@@ -444,10 +483,19 @@ class RAGEngine:
         if not self.prefilling:
             return
         chunk = self.cfg.prefill_chunk
+        tracer = self.tracer
         with self._timed("prefill"):
             for slot, cursor in list(self.prefilling.items()):
                 req = self.active[slot]
                 piece = req.prompt[cursor:cursor + chunk]
+                span = None
+                if tracer.enabled:
+                    span = tracer.begin(
+                        "PREFILL_CHUNK", rid=req.rid,
+                        engine=self.trace_name, tick=self.tick_no,
+                        attempt=req.retries + req.migrations,
+                        attrs={"tokens": len(piece), "cursor": cursor,
+                               "prompt_tokens": len(req.prompt)})
                 logits = self._paged_extend(slot, piece)
                 cursor += len(piece)
                 if cursor >= len(req.prompt):
@@ -457,9 +505,19 @@ class RAGEngine:
                     req.output.append(tok)
                     req.t_first_token = time.monotonic()
                     self.metrics["prefills"] += 1
+                    if span is not None:
+                        tracer.end(span)
                     req.state = State.DECODE
+                    if tracer.enabled:
+                        tracer.begin("DECODE", rid=req.rid,
+                                     engine=self.trace_name,
+                                     tick=self.tick_no,
+                                     attempt=req.retries + req.migrations,
+                                     attrs={"slot": slot})
                 else:
                     self.prefilling[slot] = cursor
+                    if span is not None:
+                        tracer.end(span)
 
     # ---------------- decode loop ------------------------------------------
 
@@ -570,7 +628,8 @@ class RAGEngine:
         self.tick_no += 1
         if not stepping:
             return
-        with self._timed("decode"):
+        attrs = ({"n": len(stepping)} if self.tracer.enabled else None)
+        with self._timed("decode", attrs=attrs):
             self._decode_active(token_vec, stepping)
 
     def decode_logits(self, token_vec: np.ndarray,

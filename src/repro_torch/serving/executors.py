@@ -10,6 +10,9 @@ attention.
 
 Executor contract: ``run(engine, request)`` mutates the request in place
 (state transitions + stage outputs) and may call engine primitives.
+With tracing on, each annotates its stage's span with payload sizes as
+plain Python ints: a tensor there would force a device read, and the
+exporters' ``json.dumps`` would refuse it.
 PyTorch runs eagerly, so where the JAX executors jit one generation
 program per prompt bucket or one encode per input shape, these call the
 model functions directly.
@@ -86,6 +89,9 @@ class RewriteExecutor:
         req.state = State.REWRITING
         extra = self._gen([req.question], eng.cfg.rewrite_tokens)[0]
         req.rewritten = np.concatenate([req.question, extra])
+        if eng.tracer.enabled:
+            eng.tracer.annotate(req.rid, in_tokens=int(len(req.question)),
+                                out_tokens=int(len(req.rewritten)))
 
 
 class MultiQueryExecutor:
@@ -106,6 +112,11 @@ class MultiQueryExecutor:
         extras = self._gen(seeds, eng.cfg.fanout_tokens)
         req.query_variants = [base] + [np.concatenate([base, e])
                                        for e in extras]
+        if eng.tracer.enabled:
+            eng.tracer.annotate(req.rid,
+                                variants=len(req.query_variants),
+                                variant_tokens=sum(int(len(v)) for v in
+                                                   req.query_variants))
 
 
 class RetrieveExecutor:
@@ -133,6 +144,9 @@ class RetrieveExecutor:
                     seen.add(d)
                     ids.append(d)
         req.candidate_ids = np.asarray(ids[:k], np.int64)
+        if eng.tracer.enabled:
+            eng.tracer.annotate(req.rid, queries=len(queries), k=k,
+                                candidates=int(len(req.candidate_ids)))
 
 
 class RerankExecutor:
@@ -150,6 +164,9 @@ class RerankExecutor:
         # jnp.argsort is stable: equal scores keep candidate order
         order = torch.argsort(-scores, stable=True)[:eng.cfg.retrieval_k]
         req.candidate_ids = cand[order.cpu().numpy()]
+        if eng.tracer.enabled:
+            eng.tracer.annotate(req.rid, scored=int(len(cand)),
+                                kept=int(len(req.candidate_ids)))
 
 
 class SafetyFilterExecutor:
@@ -177,6 +194,9 @@ class SafetyFilterExecutor:
         thr = eng.cfg.safety_threshold
         if thr is not None:
             req.candidate_ids = cand[scores >= thr]
+        if eng.tracer.enabled:
+            eng.tracer.annotate(req.rid, screened=int(len(cand)),
+                                kept=int(len(req.candidate_ids)))
 
     def filter_iterative(self, eng, req, doc_ids):
         """Screen iteratively retrieved docs before the cache append."""

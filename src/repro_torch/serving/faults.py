@@ -143,9 +143,8 @@ class FaultInjector:
         self._seen = [0] * len(plan.specs)      # matching occurrences so far
         self.rng = np.random.default_rng(plan.seed)
         self.log: list[tuple] = []              # (point, occurrence, eng, rid)
-        # telemetry: a tracer with ``enabled`` true would record every
-        # injected fault as a FAULT:<point> event; the port has only the
-        # no-op tracer so far
+        # telemetry: the cluster's set_tracer swaps in a SpanTracer so
+        # every injected fault lands on the trace as a FAULT:<point> event
         self.tracer = NULL_TRACER
 
     def fire(self, point: str, engine: int | None = None,

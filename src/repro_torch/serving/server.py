@@ -29,8 +29,10 @@ admission and deadline-aware decode-slot scheduling underneath.
 ``add_step_hook`` is where a
 :class:`~repro_torch.serving.controller.ClusterController` attaches.
 ``replay_trace`` replays a JSONL arrival trace
-(``repro_torch.serving.trace``) against the wall clock.  Not ported yet:
-span tracing.
+(``repro_torch.serving.trace``) against the wall clock.  ``set_tracer``
+(or the ``tracer`` argument) installs a
+:class:`~repro_torch.serving.telemetry.SpanTracer` across the deployment;
+``summary()["slo"]`` then attributes each request's time to its stages.
 """
 
 from __future__ import annotations
@@ -43,7 +45,8 @@ import numpy as np
 from repro_torch.serving.cluster import RAGCluster, percentiles
 from repro_torch.serving.engine import RAGEngine
 from repro_torch.serving.request import Request, State
-from repro_torch.serving.telemetry import MetricsRegistry
+from repro_torch.serving.telemetry import (NULL_TRACER, MetricsRegistry,
+                                           slo_summary)
 
 
 class RequestStalledError(RuntimeError):
@@ -124,9 +127,13 @@ class RAGServer:
     :class:`~repro_torch.serving.engine.RAGEngine` or a disaggregated
     :class:`~repro_torch.serving.cluster.RAGCluster`."""
 
-    def __init__(self, engine):
+    def __init__(self, engine, tracer=None):
         """``engine``: a collocated :class:`~repro_torch.serving.engine.
-        RAGEngine` or a :class:`~repro_torch.serving.cluster.RAGCluster`."""
+        RAGEngine` or a :class:`~repro_torch.serving.cluster.RAGCluster`.
+        ``tracer``: an optional :class:`~repro_torch.serving.telemetry.
+        SpanTracer` installed across the deployment (default: inherit
+        whatever the engine or cluster already carries -- the no-op
+        tracer unless one was set)."""
         self.cluster = engine if isinstance(engine, RAGCluster) else None
         self.engine = None if self.cluster is not None else engine
         self.handles: dict[int, RequestHandle] = {}
@@ -135,6 +142,16 @@ class RAGServer:
         # server-level latency histograms (TTFT/TPOT/latency), fed as
         # requests reach terminal states in _deliver
         self.metrics = MetricsRegistry()
+        if tracer is not None:
+            self.set_tracer(tracer)
+        else:
+            self.tracer = (self.cluster or self.engine).tracer
+
+    def set_tracer(self, tracer) -> None:
+        """Install a span tracer on this server and the deployment under
+        it (engine or whole cluster)."""
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        (self.cluster or self.engine).set_tracer(self.tracer)
 
     def add_step_hook(self, fn: Callable[["RAGServer"], None]) -> None:
         """Register a callback fired after every :meth:`step` (idle steps
@@ -213,6 +230,14 @@ class RAGServer:
                         else time.monotonic())
         req.max_new_tokens = min(req.max_new_tokens,
                                  self.cfg.max_new_tokens)
+        if self.tracer.enabled:
+            # before dispatch: SLO-aware shedding may terminate the
+            # request inside cluster.submit, and SUBMIT must precede it
+            if req.tracer is None:
+                req.tracer = self.tracer
+            self.tracer.event("SUBMIT", rid=req.rid, t=req.t_arrive,
+                              attrs={"q_tokens": int(len(req.question)),
+                                     "deadline": req.deadline})
         if self.cluster is not None:
             self.cluster.submit(req)     # may shed (SLO-aware admission)
         else:
@@ -433,6 +458,10 @@ class RAGServer:
         hists = self.metrics.snapshot().get("histograms")
         if hists:
             out["hist"] = hists
+        if self.tracer.enabled:
+            # span-derived deadline-budget attribution per stage,
+            # including the p99-TTFT request decomposed by stage
+            out["slo"] = slo_summary(self.tracer, reqs)
         return out
 
 

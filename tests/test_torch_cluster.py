@@ -11,7 +11,8 @@
   equals the JAX pool's, and the gathered export is bit-equal to the
   per-page export it replaced.
 * ``from_plan(topology="disagg")`` group sizes, ``group_summary`` keys,
-  SLO shedding at ``submit``, and ``set_tracer`` refusing a tracer.
+  SLO shedding at ``submit``, and ``set_tracer`` reaching every engine
+  (one added later too) and the injector.
 """
 
 import dataclasses
@@ -55,7 +56,7 @@ KW = dict(decode_slots=2, s_max=96, max_new_tokens=7, iterative_interval=3,
 
 
 def _port_cluster(stack, backend, n_prefill=1, n_decode=1,
-                  predicted_ttft=None, **kw):
+                  predicted_ttft=None, injector=None, **kw):
     """A port cluster with the same shape as the JAX one, sharing one
     corpus encode and the carried index."""
     gen, enc, corpus, _ = stack
@@ -70,7 +71,8 @@ def _port_cluster(stack, backend, n_prefill=1, n_decode=1,
                          for _ in range(n_prefill - 1)]
     decode = [te.RAGEngine(g, e, corpus, cfg, **shared)
               for _ in range(n_decode)]
-    return RAGCluster(prefill, decode, predicted_ttft=predicted_ttft)
+    return RAGCluster(prefill, decode, predicted_ttft=predicted_ttft,
+                      injector=injector)
 
 
 @pytest.fixture(scope="module")
@@ -334,16 +336,29 @@ def test_slo_admission_sheds_at_submit(stack, jax_run):
 
 
 def test_set_tracer_refuses_an_enabled_tracer(stack, jax_run):
-    class Enabled:
-        enabled = True
+    """Since the port has span tracing, an enabled tracer is no longer
+    refused: it lands on every engine, the fault injector and an engine
+    added later; ``set_tracer(None)`` turns all of them off."""
+    from repro_torch.serving.faults import FaultInjector, FaultPlan
+    from repro_torch.serving.telemetry import NULL_TRACER, SpanTracer
 
-    cluster = _port_cluster(stack, _backend(jax_run[2]))
-    with pytest.raises(NotImplementedError, match="tracing"):
-        cluster.set_tracer(Enabled())
-    cluster.set_tracer(None)                    # off is always fine
-    assert not cluster.tracer.enabled
-    assert all(not e.tracer.enabled
-               for e in cluster.prefill_engines + cluster.decode_engines)
+    cluster = _port_cluster(stack, _backend(jax_run[2]),
+                            injector=FaultInjector(FaultPlan([])))
+    tracer = SpanTracer()
+    cluster.set_tracer(tracer)
+    base = cluster.decode_engines[0]
+    late = te.RAGEngine(base.gen, base.enc, base.corpus, base.cfg,
+                        db_vectors=base.db_vectors, backend=base.backend,
+                        device="cpu")
+    cluster.add_decode_engine(late)
+    engines = cluster.prefill_engines + cluster.decode_engines
+    assert late in engines and len(engines) == 3
+    assert cluster.tracer is tracer and cluster.injector.tracer is tracer
+    assert all(e.tracer is tracer for e in engines)
+    cluster.set_tracer(None)                    # off reaches them all
+    assert cluster.tracer is NULL_TRACER
+    assert cluster.injector.tracer is NULL_TRACER
+    assert all(e.tracer is NULL_TRACER for e in engines)
 
 
 def test_step_hooks_fire_on_every_step(stack, jax_run):
