@@ -4,8 +4,10 @@
 Drives the port's serving paths -- ``RAGServer`` over ``RAGEngine`` and
 over the disaggregated ``RAGCluster``, with IBM Granite-3.0-2B at full
 width (random weights from a seed), an encoder of ENCODER_120M's widths
-with Granite's vocabulary, and IVF-PQ retrieval -- and holds every CUDA
-kernel of those paths against its plain PyTorch version.  Full-sequence
+with Granite's vocabulary, and IVF-PQ retrieval; then Minitron-8B and
+ChatGLM3-6B in bf16 and int8 and the mixture-of-experts Moonlight-16B-A3B,
+each at full width -- and holds every CUDA kernel of those paths against
+its plain PyTorch version.  Full-sequence
 attention (prefill, the encoder, greedy generation's prompt pass) runs the
 flash attention kernel on every path.  The paged path decodes through the
 paged-decode kernel; the dense path decodes through the dense decode
@@ -23,10 +25,12 @@ lines (and its seconds as a ``phase_seconds`` line), in order:
   setup        model weights, corpus encode, IVF-PQ index, two engines
   kernels      each kernel vs its plain version at its path's shapes,
                timed warm and cold in L2; paged decode at serve's and
-               serve_plan's shapes and dense decode also at greedy
-               generation's B=1 shape, each with its split; flash also at
-               a few edges (ragged S, kv_len < S, D=128); the PQ scan at
-               one serve search, through both entry points
+               serve_plan's shapes and at the KV heads of Moonlight,
+               Minitron and ChatGLM3 (D=128, G=1/4/16), dense decode also
+               at greedy generation's B=1 shape, each with its split;
+               flash also at those models' prefills and a few edges
+               (ragged S, kv_len < S, D=128); the PQ scan at one serve
+               search, through both entry points
   retrieve_scale  IVF-PQ search over a Wikipedia-sized index made on the
                card (21,015,324 vectors in 4,096 lists, 96-byte codes): 32
                queries through ``IVFPQBackend.search`` (one scan launch
@@ -71,6 +75,23 @@ lines (and its seconds as a ``phase_seconds`` line), in order:
                on it, then ``resize(2, 2)`` and ``resize(2, 1)`` during a
                fresh replay of the trace, no request dropped; traced: a
                CONTROL event a controller event, a MIGRATE a migration
+  models       every engine, server and cluster above collected but
+               serve's encoder, corpus embedding and index: Minitron-8B,
+               then ChatGLM3-6B, at full width (random bf16 weights from a
+               seed), each freed before the next: a teacher-forced decode
+               step and prefill (kernel vs plain attention),
+               ``quantize_for_serving``, the largest gap between the bf16
+               and int8 next-token distributions (printed, not gated),
+               and 4 questions through a paged engine on the int8 weights
+  serve_moe    last, on the emptied card: Moonlight-16B-A3B in the
+               reference's config at full width (48 layers, 64 experts
+               top-6, 56.1 GB of bf16 weights), an encoder of
+               ENCODER_120M's widths with its vocabulary, serve's engine
+               and traffic (16 Poisson questions); launches, TTFT, TPOT,
+               the stage times, bytes and peak memory; a teacher-forced
+               decode step and prefill (kernel vs plain attention, the
+               routing pinned) and ``moe_ffn`` at the decode shape against
+               a token-wise version, with its device time a layer
 
 then the ``{"kernels": [...]}`` line, the raw ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``.  Any failed check raises
@@ -109,6 +130,9 @@ PLAN_QPS = 4.0            # ... and of the serve_plan trace
 N_PLAN_QUESTIONS = 8
 NEW_TOKENS = 32
 TIMING_REPS = 50
+#: the device of the encoders and of the models and serve_moe phases'
+#: models (a rehearsal of those phases on the CPU sets "cpu")
+DEVICE = "cuda"
 # the stage executors of repro/configs/rag_pipelines.py::full_pipeline
 DENSE_STAGES = ("rewrite", "multi_query", "retrieval", "rerank",
                 "safety_filter")
@@ -199,6 +223,31 @@ def phase_build() -> None:
           "sources": [str(s.relative_to(ROOT)) for s in _build.sources()]})
 
 
+def serve_engine_config():
+    """The paged engine of serve, models and serve_moe: 8 slots of s_max
+    1,024 in pages of 16, two documents a question from IVF-PQ, 32 new
+    tokens."""
+    from repro_torch.serving.engine import EngineConfig
+    return EngineConfig(decode_slots=8, s_max=1024, page_size=16,
+                        retrieval_k=2, max_new_tokens=NEW_TOKENS,
+                        retrieval_backend="ivfpq")
+
+
+def encoder_component(vocab_size: int):
+    """ENCODER_120M's widths (repro.core.ragschema), bidirectional, f32,
+    with the generator's vocabulary as repro/launch/serve.py sizes its
+    encoder: rewrite and fan-out hand generated ids to it."""
+    import torch
+    from repro_torch.models import transformer as tr
+    from repro_torch.serving.engine import Component
+    cfg = tr.TransformerConfig(
+        name="st-120m", n_layers=12, d_model=768, n_heads=12, n_kv_heads=12,
+        d_head=64, d_ff=3072, vocab_size=vocab_size, causal=False)
+    return Component(cfg, tr.init_params(
+        cfg, torch.Generator(device=DEVICE).manual_seed(1),
+        dtype=torch.float32, device=DEVICE))
+
+
 def phase_setup():
     import torch
     from repro_torch.configs import granite_3_2b
@@ -211,20 +260,11 @@ def phase_setup():
     gen = Component(gen_cfg, tr.init_params(
         gen_cfg, torch.Generator(device="cuda").manual_seed(0),
         dtype=torch.bfloat16, device="cuda"))
-    # ENCODER_120M's widths (repro.core.ragschema), bidirectional, with the
-    # generator's vocabulary as repro/launch/serve.py sizes its encoder:
-    # rewrite and fan-out hand generated ids to it
-    enc_cfg = tr.TransformerConfig(
-        name="st-120m", n_layers=12, d_model=768, n_heads=12, n_kv_heads=12,
-        d_head=64, d_ff=3072, vocab_size=gen_cfg.vocab_size, causal=False)
-    enc = Component(enc_cfg, tr.init_params(
-        enc_cfg, torch.Generator(device="cuda").manual_seed(1),
-        dtype=torch.float32, device="cuda"))
+    enc = encoder_component(gen_cfg.vocab_size)
+    enc_cfg = enc.cfg
     corpus, _topics, make_q = topical_corpus(4096, 256, enc_cfg.vocab_size)
-    cfg = EngineConfig(decode_slots=8, s_max=1024, page_size=16,
-                       retrieval_k=2, max_new_tokens=NEW_TOKENS,
-                       retrieval_backend="ivfpq")
-    engine = RAGEngine(gen, enc, corpus, cfg, device="cuda")
+    engine = RAGEngine(gen, enc, corpus, serve_engine_config(),
+                       device="cuda")
     # full_pipeline's schema values; its 8B rewriter has no config in the
     # port, so Granite rewrites too, and the encoder reranks and screens
     dense_cfg = EngineConfig(decode_slots=8, s_max=1024, paged=False,
@@ -266,13 +306,18 @@ def phase_setup():
 #: and M*page + 1 (clamps); serve_plan's 128 slots of s_max 768, 8 live
 #: rows at 300-768 in the slots the pool hands out first (the highest)
 #: beside 120 idle slots that attend over one row (the step writes every
-#: slot at pos + 1)
+#: slot at pos + 1); serve's slots and lengths at the heads of
+#: Moonlight-16B-A3B (serve_moe: 16 KV heads, G=1, D=128), Minitron-8B
+#: (8, G=4, D=128) and ChatGLM3-6B (2, G=16, D=128) for the models phase
+SERVE_LENGTHS = [0, 1, 537, 1025, 300, 300, 1024, 16]
 PAGED_SHAPES = {
-    "serve": (8, 8, 4, 64, 16, 64, [0, 1, 537, 1025, 300, 300, 1024, 16],
-              (4, 5)),
+    "serve": (8, 8, 4, 64, 16, 64, SERVE_LENGTHS, (4, 5)),
     "serve_plan": (128, 8, 4, 64, 16, 48,
                    [1] * 120 + [768, 300, 537, 640, 412, 412, 700, 555],
                    (124, 125)),
+    "serve_moe": (8, 16, 1, 128, 16, 64, SERVE_LENGTHS, (4, 5)),
+    "minitron": (8, 8, 4, 128, 16, 64, SERVE_LENGTHS, (4, 5)),
+    "chatglm3": (8, 2, 16, 128, 16, 64, SERVE_LENGTHS, (4, 5)),
 }
 
 
@@ -451,20 +496,26 @@ def _decode_at(b, s, h_kv, g, d, lengths, seed) -> dict:
 
 
 def check_flash_attention() -> dict:
-    """Kernel vs plain version at the two shapes its path runs: the
-    generator's prefill (B=1, S=1,024, H=32, H_kv=8, D=64, bf16, causal)
-    and the encoder's batch (B=32, S=256, H=12, D=64, f32, full), each
-    timed warm and cold in L2; then a few edges (ragged S, kv_len < S,
-    D=128) against the plain version.  One ``scaled_dot_product_attention``
-    call on the same inputs is timed as a yardstick (``library_ms``); the
-    port never calls it."""
+    """Kernel vs plain version at the shapes its paths run: the
+    generator's prefill (B=1, S=1,024, H=32, H_kv=8, D=64, bf16, causal),
+    the encoder's batch (B=32, S=256, H=12, D=64, f32, full), and the
+    1,024-token prefills of Moonlight-16B-A3B (H=16, H_kv=16, D=128),
+    Minitron-8B (32, 8, 128) and ChatGLM3-6B (32, 2, 128), each timed warm
+    and cold in L2; then a few edges (ragged S, kv_len < S, D=128) against
+    the plain version.  One ``scaled_dot_product_attention`` call on the
+    same inputs is timed as a yardstick (``library_ms``); the port never
+    calls it."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
     shapes = {"prefill": (1, 1024, 32, 8, 64, torch.bfloat16, True, 2e-2),
-              "encoder": (32, 256, 12, 12, 64, torch.float32, False, 1e-5)}
+              "encoder": (32, 256, 12, 12, 64, torch.float32, False, 1e-5),
+              "serve_moe": (1, 1024, 16, 16, 128, torch.bfloat16, True,
+                            2e-2),
+              "minitron": (1, 1024, 32, 8, 128, torch.bfloat16, True, 2e-2),
+              "chatglm3": (1, 1024, 32, 2, 128, torch.bfloat16, True, 2e-2)}
     rng = np.random.default_rng(3)
     out = {"tol_reason": "kernel and plain version both keep f32 softmax "
                          "statistics and round the f32 result once; they "
@@ -868,7 +919,17 @@ def phase_serve(engine, questions) -> dict:
         "attn_impl": snap["attn_impl"], "launches": launches,
         "first_output": handles[0].output[:8]}
     emit(result)
-    check_served(engine, handles, questions, snap)
+    check_served(engine, [h.request for h in handles], questions, snap)
+    check_paged_launches(engine, launches, snap, len(questions))
+    return result
+
+
+def check_paged_launches(engine, launches, snap, n_requests: int) -> None:
+    """The paged path's kernels over one phase: paged decode once a layer
+    a decode step, the dense kernel never, one PQ scan a search (a search
+    a request at least), flash on every prefill and query embed."""
+    steps = snap["decode_host_syncs"]            # decode steps that stepped
+    searches = snap["histograms"]["stage_seconds:retrieve"]["count"]
     n_layers = engine.gen.cfg.n_layers
     if launches["paged_decode_attention"] != n_layers * steps:
         raise AssertionError(f"paged attention launched "
@@ -876,11 +937,10 @@ def phase_serve(engine, questions) -> dict:
                              f"expected {n_layers} x {steps}")
     if launches["decode_attention"] != 0:
         raise AssertionError("the dense kernel ran on the paged path")
-    if launches["pq_scan"] != searches or searches < len(questions):
+    if launches["pq_scan"] != searches or searches < n_requests:
         raise AssertionError(f"pq_scan launched {launches['pq_scan']} "
                              f"times for {searches} searches")
     check_flash_launches(engine, launches, snap["prefills"], searches)
-    return result
 
 
 def check_flash_launches(engine, launches, prefills, searches) -> None:
@@ -914,14 +974,13 @@ def read_launches() -> dict:
     return {name: fn.launches for name, fn in _launch_counters().items()}
 
 
-def check_served(engine, handles, questions, snap,
+def check_served(engine, reqs, questions, snap,
                  n_tokens: int = NEW_TOKENS) -> None:
     """Every request DONE with ``n_tokens`` in-vocabulary tokens and
     in-corpus documents, through the CUDA attention kernels."""
     from repro_torch.serving.request import State
     vocab = engine.gen.cfg.vocab_size
-    for h in handles:
-        r = h.request
+    for r in reqs:
         if r.state is not State.DONE or len(r.output) != n_tokens:
             raise AssertionError(f"request {r.rid}: {r.state} with "
                                  f"{len(r.output)} tokens")
@@ -929,8 +988,8 @@ def check_served(engine, handles, questions, snap,
             raise AssertionError(f"request {r.rid}: token out of range")
         if not all(0 <= i < len(engine.corpus) for i in r.retrieved_ids[0]):
             raise AssertionError(f"request {r.rid}: bad retrieved ids")
-    if len(handles) != len(questions):
-        raise AssertionError(f"{len(handles)} of {len(questions)} served")
+    if len(reqs) != len(questions):
+        raise AssertionError(f"{len(reqs)} of {len(questions)} served")
     if snap["attn_impl"] != "cuda":
         raise AssertionError(f"attn_impl resolved to {snap['attn_impl']}")
 
@@ -1121,7 +1180,7 @@ def phase_serve_dense(dense, questions) -> dict:
     emit(result)
     if not isinstance(dense.pool, KVCachePool):
         raise AssertionError("the dense engine is not on the dense pool")
-    check_served(dense, handles, questions, snap)
+    check_served(dense, [h.request for h in handles], questions, snap)
     missing = [n for n in DENSE_STAGES if not stage_time.get(n, 0) > 0]
     if missing:
         raise AssertionError(f"no stage time for executors {missing}")
@@ -1237,7 +1296,8 @@ def phase_serve_plan(engine, questions) -> dict:
         "attn_impl": snap["attn_impl"], "launches": launches,
         "first_output": handles[0].output[:8]}
     emit(result)
-    check_served(plan_engine, handles, questions, snap,
+    check_served(plan_engine, [h.request for h in handles], questions,
+                 snap,
                  n_tokens=EXPECTED_PLAN["max_new_tokens"])
     if min(iterative) < 1:
         raise AssertionError(f"iterative retrievals per request: {iterative}")
@@ -1396,7 +1456,8 @@ def phase_serve_disagg(engine, questions, plan) -> dict:
     if any(sn["attn_impl"] != "cuda" for sn in snaps):
         raise AssertionError("an engine of the cluster is not on the "
                              "CUDA attention kernels")
-    check_served(cluster.decode_engines[0], handles, questions, decode_snap,
+    check_served(cluster.decode_engines[0], [h.request for h in handles],
+                 questions, decode_snap,
                  n_tokens=EXPECTED_PLAN["max_new_tokens"])
     if min(iterative) < 1:
         raise AssertionError(f"iterative retrievals per request: {iterative}")
@@ -1549,27 +1610,62 @@ def compare_logits(name: str, plain, kern) -> dict:
     return result
 
 
-def phase_check(engine, dense, questions, cluster) -> dict:
-    """One teacher-forced decode step of the full-width model on each pool,
-    every slot filled, and one teacher-forced prefill of 8 prompts, plain
-    attention vs the kernel; IVF-PQ search with the scan kernel vs the
-    plain scan; and disagg parity (``check_disagg_parity``) on
-    serve_disagg's corpus encode and index."""
+class PinnedRouting:
+    """Inside the block, the second run of the model replays the first
+    run's MoE routing (``tr.moe_route``'s gates, experts and aux), so a
+    kernel-vs-plain comparison of an MoE model differs by attention
+    alone: a bf16 step of difference upstream flips an expert at a router
+    near-tie, and a flipped expert moves its row by far more than the
+    attention paths differ.  ``summary()`` counts the choices the second
+    run would have made otherwise.  A dense model never routes."""
+
+    def __init__(self):
+        self.calls: list = []
+        self.replay = False
+        self.choices = self.flips = 0
+
+    def __enter__(self):
+        from repro_torch.models import transformer as tr
+        self._tr, self._route = tr, tr.moe_route
+        tr.moe_route = self._route_pinned
+        return self
+
+    def __exit__(self, *exc):
+        self._tr.moe_route = self._route
+
+    def second_run(self) -> None:
+        self.replay, self._next = True, 0
+
+    def _route_pinned(self, *args, **kw):
+        out = self._route(*args, **kw)
+        if not self.replay:
+            self.calls.append(out)
+            return out
+        pinned = self.calls[self._next]
+        self._next += 1
+        self.choices += out[2].numel()
+        self.flips += int((out[2] != pinned[2]).sum())
+        return pinned
+
+    def summary(self) -> dict:
+        return {"layer_calls": len(self.calls), "choices": self.choices,
+                "flipped_unpinned": self.flips}
+
+
+def teacher_forced_paged(engine, questions) -> tuple[dict, np.ndarray]:
+    """Admit and prefill one fresh request a decode slot, then one
+    teacher-forced decode step of the full-width model over the whole
+    pool, plain attention vs the paged kernel (``compare_logits``; an MoE
+    model's routing pinned to the plain run's: ``PinnedRouting``).  The
+    requests stay in their slots; returns the comparison and their
+    prompts' last 512 tokens."""
     import torch
-    from repro_torch.kernels.decode_attention.ops import decode_attention
-    from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.paged_attention.ops import paged_decode_attention
     from repro_torch.models import transformer as tr
-    from repro_torch.retrieval.ivf_pq import search
     from repro_torch.serving.request import Request, State
 
-    result = {"phase": "check",
-              "tol_reason": "plain attention rounds probabilities to bf16, "
-                            "the kernel keeps f32; 40 bf16 layers carry "
-                            "that to a few bf16 steps of each logit"}
     vocab = engine.gen.cfg.vocab_size
     dev = engine.device
-    # paged: admit + prefill 8 fresh requests, then one step
     for q in questions[:engine.cfg.decode_slots]:
         engine.queue.append(Request(question=q.copy(),
                                     max_new_tokens=NEW_TOKENS))
@@ -1586,16 +1682,73 @@ def phase_check(engine, dense, questions, cluster) -> dict:
     args = (torch.tensor(tokens, device=dev), engine.pool.positions(),
             torch.tensor(engine.pool.block_tables(), device=dev))
     logits = {}
-    for name, attn in (("plain", None), ("kernel", paged_decode_attention)):
-        # the step writes the same K/V rows before attending, so the two
-        # runs see the same pool whichever goes first
-        lg, _ = tr.paged_decode_step(
-            engine.gen.params, engine.pool.cache, *args, engine.gen.cfg,
-            attn_impl=attn, write_mask=torch.tensor(mask, device=dev))
-        logits[name] = lg[slots, :vocab].float()
+    with PinnedRouting() as pin:
+        for name, attn in (("plain", None),
+                           ("kernel", paged_decode_attention)):
+            # the step writes the same K/V rows before attending, so the
+            # two runs see the same pool whichever goes first
+            lg, _ = tr.paged_decode_step(
+                engine.gen.params, engine.pool.cache, *args, engine.gen.cfg,
+                attn_impl=attn, write_mask=torch.tensor(mask, device=dev))
+            logits[name] = lg[slots, :vocab].float()
+            pin.second_run()
     torch.cuda.synchronize()
-    result["paged"] = compare_logits("paged", logits["plain"],
-                                     logits["kernel"])
+    prompts = np.stack([engine.active[s].prompt[-512:] for s in slots])
+    result = compare_logits("paged", logits["plain"], logits["kernel"])
+    if engine.gen.cfg.moe is not None:
+        result["routing"] = pin.summary()
+    return result, prompts
+
+
+def teacher_forced_prefill(gen, prompts: np.ndarray):
+    """``tr.prefill`` of ``prompts`` (B, S) in one teacher-forced
+    full-width forward, through the plain attention and through the flash
+    kernel (an MoE model's routing pinned to the first run's:
+    ``PinnedRouting``); the logits are each prompt's first token's.
+    Returns the comparison and the kernel's logits (B, vocab), f32."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.models import transformer as tr
+
+    tokens = torch.tensor(prompts, device=DEVICE)
+    logits = {}
+    with PinnedRouting() as pin:
+        for name, attn in (("plain", None), ("kernel", flash_attention)):
+            lg, _ = tr.prefill(gen.params, tokens, gen.cfg, attn_impl=attn)
+            logits[name] = lg[:, :gen.cfg.vocab_size].float()
+            pin.second_run()
+    torch.cuda.synchronize()
+    result = compare_logits("prefill", logits["plain"], logits["kernel"])
+    result["prompt_shape"] = list(prompts.shape)
+    if gen.cfg.moe is not None:
+        result["routing"] = pin.summary()
+    return result, logits["kernel"]
+
+
+def abort_all(engine, reason: str) -> None:
+    for slot in list(engine.active):
+        engine.abort_request(engine.active[slot], reason)
+
+
+def phase_check(engine, dense, questions, cluster) -> dict:
+    """One teacher-forced decode step of the full-width model on each pool,
+    every slot filled, and one teacher-forced prefill of 8 prompts, plain
+    attention vs the kernel; IVF-PQ search with the scan kernel vs the
+    plain scan; and disagg parity (``check_disagg_parity``) on
+    serve_disagg's corpus encode and index."""
+    import torch
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.models import transformer as tr
+    from repro_torch.retrieval.ivf_pq import search
+    from repro_torch.serving.request import Request
+
+    result = {"phase": "check",
+              "tol_reason": "plain attention rounds probabilities to bf16, "
+                            "the kernel keeps f32; 40 bf16 layers carry "
+                            "that to a few bf16 steps of each logit"}
+    vocab = engine.gen.cfg.vocab_size
+    dev = engine.device
+    result["paged"], _ = teacher_forced_paged(engine, questions)
 
     # dense: prefill 8 prompts of two retrieved documents + the question
     # straight into the slots (the stage executors ran in serve_dense)
@@ -1631,15 +1784,7 @@ def phase_check(engine, dense, questions, cluster) -> dict:
     # the flash kernel and through the "ref" attention; the logits of each
     # prompt's last position are its first token's
     prompts = np.stack([dense.active[s].prompt[-512:] for s in slots])
-    logits = {}
-    for name, attn in (("plain", None), ("kernel", flash_attention)):
-        lg, _ = tr.forward(dense.gen.params, torch.tensor(prompts, device=dev),
-                           dense.gen.cfg, attn_impl=attn)
-        logits[name] = lg[:, -1, :vocab].float()
-    torch.cuda.synchronize()
-    result["prefill"] = compare_logits("prefill", logits["plain"],
-                                       logits["kernel"])
-    result["prefill"]["prompt_shape"] = list(prompts.shape)
+    result["prefill"], _ = teacher_forced_prefill(dense.gen, prompts)
 
     # retrieval: the scan kernel and the plain scan give the same search
     backend = engine.backend.chain[0]
@@ -1652,8 +1797,7 @@ def phase_check(engine, dense, questions, cluster) -> dict:
         raise AssertionError("IVF-PQ search differs with the scan kernel")
     result["search_ids_equal"] = True
     for eng in (engine, dense):
-        for slot in list(eng.active):
-            eng.abort_request(eng.active[slot], "smoke check done")
+        abort_all(eng, "smoke check done")
     result["disagg_parity"] = check_disagg_parity(cluster, questions)
     emit(result)
     return result
@@ -1929,6 +2073,257 @@ def phase_control(disagg, questions, plan) -> dict:
     return result
 
 
+#: the reference registry's other dense LMs, each served at full width in
+#: bf16 and int8 (the models phase), one after the other
+MODEL_ARCHS = ("minitron-8b", "chatglm3-6b")
+N_MODEL_QUESTIONS = 4
+
+
+def check_model(arch_id: str, enc, corpus, db_vectors, backend,
+                questions) -> dict:
+    """One reference LM at full width: random bf16 weights from a seed, a
+    teacher-forced decode step and prefill (kernel vs plain attention);
+    ``quantize_for_serving``, the largest gap between the bf16 and int8
+    next-token distributions of those prefills (printed, not gated), and
+    4 questions served through a paged engine on the int8 weights.  Both
+    engines share serve's encoder, corpus embedding and IVF-PQ index."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tr
+    from repro_torch.serving.engine import Component, RAGEngine
+    from repro_torch.serving.request import Request
+
+    cfg = get_arch(arch_id).config
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = Component(cfg, tr.init_params(
+        cfg, torch.Generator(device=DEVICE).manual_seed(0),
+        dtype=torch.bfloat16, device=DEVICE))
+    torch.cuda.synchronize()
+    result = {"phase": "models", "model": arch_id,
+              "init_s": time.perf_counter() - t0,
+              "params": sum(t.numel() for t in gen.params.buffers()),
+              "param_bytes": buffer_bytes(gen.params)}
+
+    def engine_for(g):
+        return RAGEngine(g, enc, corpus, serve_engine_config(),
+                         db_vectors=db_vectors, backend=backend,
+                         device=DEVICE)
+
+    engine = engine_for(gen)
+    result["paged"], prompts = teacher_forced_paged(engine, questions)
+    result["prefill"], bf16_logits = teacher_forced_prefill(gen, prompts)
+    abort_all(engine, "models check done")
+    del engine
+    t0 = time.perf_counter()
+    qgen = Component(cfg, tr.quantize_for_serving(gen.params))
+    torch.cuda.synchronize()
+    result["quantize_s"] = time.perf_counter() - t0
+    result["int8_param_bytes"] = buffer_bytes(qgen.params)
+    del gen
+    _, int8_logits = teacher_forced_prefill(qgen, prompts)
+    gap = (torch.softmax(bf16_logits, -1)
+           - torch.softmax(int8_logits, -1)).abs()
+    result["int8_softmax_max_gap"] = float(gap.max())
+    result["int8_argmax_equal"] = int(
+        (bf16_logits.argmax(-1) == int8_logits.argmax(-1)).sum())
+
+    qengine = engine_for(qgen)
+    reqs = [Request(question=q.copy(), max_new_tokens=NEW_TOKENS)
+            for q in questions[:N_MODEL_QUESTIONS]]
+    reset_launches()
+    t0 = time.perf_counter()
+    qengine.serve(reqs)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    snap = qengine.metrics_snapshot()
+    result.update(
+        int8_serve_wall_s=time.perf_counter() - t0,
+        int8_decode_steps=snap["decode_host_syncs"],
+        int8_prefills=snap["prefills"],
+        int8_stage_time_s=snap["stage_time_s"], int8_launches=launches,
+        int8_first_output=reqs[0].output[:8],
+        peak_mem_bytes=torch.cuda.max_memory_allocated())
+    emit(result)
+    check_served(qengine, reqs, questions[:N_MODEL_QUESTIONS], snap)
+    check_paged_launches(qengine, launches, snap, len(reqs))
+    return result
+
+
+def phase_models(enc, corpus, db_vectors, backend, questions) -> dict:
+    """``check_model`` for each of MODEL_ARCHS, each freed before the
+    next."""
+    out = {}
+    for arch_id in MODEL_ARCHS:
+        out[arch_id] = check_model(arch_id, enc, corpus, db_vectors, backend,
+                                   questions)
+        release_device_memory()
+    return out
+
+
+def buffer_bytes(module) -> int:
+    return sum(t.numel() * t.element_size() for t in module.buffers())
+
+
+#: the MoE phase: Moonlight-16B-A3B in the reference's config
+MOE_ARCH = "moonshot-v1-16b-a3b"
+
+
+def moe_tokenwise(x, lp: dict, cfg, compute_dtype=None):
+    """The MoE FFN token by token, with no capacity: each token's top-k
+    experts (stable descending order, as ``jax.lax.top_k``) are gathered
+    and applied, weighted by their renormalised gates.  Equal to
+    ``tr.moe_ffn`` wherever no slot is dropped, as at decode (S = 1)."""
+    import torch
+    from repro_torch.models import common as cm
+    compute_dtype = compute_dtype or torch.bfloat16
+    B, S, d = x.shape
+    k = cfg.moe.top_k
+    xc = x.to(compute_dtype)
+    gates = torch.softmax(
+        (xc @ cm.maybe_dequant(lp["router"], compute_dtype)).float(), dim=-1)
+    gval, eidx = torch.sort(gates, dim=-1, descending=True, stable=True)
+    gval, eidx = gval[..., :k], eidx[..., :k].reshape(B * S, k)
+    gval = gval / (gval.sum(-1, keepdim=True) + 1e-9)
+    xt = xc.reshape(B * S, 1, 1, d)
+
+    def expert(name):                                  # (B*S, k, d_in, d_out)
+        return cm.maybe_dequant(lp[name], compute_dtype)[eidx]
+    up = xt @ expert("w_up")                                 # (N, k, 1, f)
+    if cfg.ffn_type == "relu2":
+        act = torch.square(torch.relu(up))
+    else:
+        act = cm.swiglu(xt @ expert("w_gate"), up)
+    out = (act @ expert("w_down"))[:, :, 0]                  # (N, k, d)
+    y = (out * gval.reshape(B * S, k, 1).to(compute_dtype)).sum(dim=1)
+    return y.reshape(B, S, d).to(x.dtype)
+
+
+def check_moe_decode(gen) -> dict:
+    """``moe_ffn`` at the decode shape (B=8, S=1: one slot an expert, none
+    dropped) on layer 0's experts against ``moe_tokenwise``, in bf16; and
+    its device time a layer beside the bound of reading every expert's
+    weights once (the reference's dispatch runs all of them)."""
+    import torch
+    from repro_torch.models import transformer as tr
+
+    cfg = gen.cfg
+    lp = tr.layer_params(gen.params["layers"], 0)
+    x = torch.tensor(np.random.default_rng(5).standard_normal(
+        (8, 1, cfg.d_model)), dtype=torch.bfloat16, device=DEVICE)
+    _, _, eidx, _ = tr.moe_route(x, lp, cfg)
+    _, keep = tr.capacity_slots(eidx, cfg.moe.n_experts, 1)
+    got, _ = tr.moe_ffn(x, lp, cfg)
+    want = moe_tokenwise(x, lp, cfg)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    tol = 2e-2
+    result = {"shape": [8, 1, cfg.d_model], "experts": cfg.moe.n_experts,
+              "top_k": cfg.moe.top_k, "kept_all": bool(keep.all()),
+              "max_abs_err": err, "max_abs": float(want.float().abs().max()),
+              "tol": tol,
+              "tol_reason": "both sides round every product to bf16 "
+                            "once; they run other GEMM shapes, so an "
+                            "output of order one may differ by a few "
+                            "bf16 steps (2^-8 relative)"}
+    if not result["kept_all"]:
+        raise AssertionError("moe_ffn dropped a slot at S = 1")
+    if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
+        emit({"phase": "serve_moe", "moe_decode": result})
+        raise AssertionError("moe_ffn differs from the token-wise version")
+    mats = [lp[n] for n in ("w_gate", "w_up", "w_down") if n in lp]
+    # every expert runs on its one capacity slot of each of the 8 rows
+    result["ms_per_layer"] = device_ms(lambda: tr.moe_ffn(x, lp, cfg))
+    result["bound_ms_per_layer"], result["bound_by"] = bound(
+        sum(w.numel() * w.element_size() for w in mats) + 2 * x.numel() * 2,
+        2 * len(mats) * 8 * cfg.moe.n_experts * cfg.d_model * cfg.d_ff,
+        "bfloat16")
+    result["tokenwise_ms_per_layer"] = device_ms(
+        lambda: moe_tokenwise(x, lp, cfg))
+    return result
+
+
+def phase_serve_moe() -> dict:
+    """Moonlight-16B-A3B in the reference's config at full width (48
+    layers, d_model 2,048, 16/16 heads of 128, 64 experts of d_ff 1,408
+    top-6, vocabulary 163,840; random bf16 weights drawn on the card),
+    an encoder of ENCODER_120M's widths with its vocabulary, a corpus of
+    4,096 documents and serve's engine: 16 Poisson questions, every
+    kernel's launches over them, then a teacher-forced decode step and
+    prefill (kernel vs plain attention) and ``moe_ffn`` against the
+    token-wise version.  Runs after every earlier engine is collected."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synthetic import topical_corpus
+    from repro_torch.models import transformer as tr
+    from repro_torch.serving.engine import Component, RAGEngine
+    from repro_torch.serving.server import RAGServer, poisson_offsets
+
+    cfg = get_arch(MOE_ARCH).config
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = Component(cfg, tr.init_params(
+        cfg, torch.Generator(device=DEVICE).manual_seed(0),
+        dtype=torch.bfloat16, device=DEVICE))
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    enc = encoder_component(cfg.vocab_size)
+    corpus, _topics, make_q = topical_corpus(4096, 256, cfg.vocab_size)
+    engine = RAGEngine(gen, enc, corpus, serve_engine_config(),
+                       device=DEVICE)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    param_bytes = buffer_bytes(gen.params)
+    embed_bytes = gen.params["embed"].numel() * 2
+    questions = [make_q(i % 8) for i in range(N_QUESTIONS)]
+
+    server = RAGServer(engine)
+    reset_launches()
+    t0 = time.perf_counter()
+    handles = server.replay(questions,
+                            poisson_offsets(QPS, len(questions), seed=0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    summary = server.summary()
+    snap = engine.metrics_snapshot()
+    steps = snap["decode_host_syncs"]
+    result = {
+        "phase": "serve_moe", "model": cfg.name, "init_s": t_init,
+        "setup_s": t_setup, "device_bytes_held_before": held,
+        "params": sum(t.numel() for t in gen.params.buffers()),
+        "param_bytes": param_bytes,
+        "kv_pool_bytes": sum(v.numel() * v.element_size()
+                             for v in engine.pool.cache.values()),
+        "encoder_bytes": buffer_bytes(enc.params),
+        "wall_s": wall, "n_done": summary["n_done"], "qps": summary["qps"],
+        "ttft_s": summary["ttft_s"], "ttft_p99_s": summary["ttft_p99_s"],
+        "tpot_s": summary["tpot_s"], "tpot_p99_s": summary["tpot_p99_s"],
+        "stage_time_s": snap["stage_time_s"], "decode_steps": steps,
+        "prefills": snap["prefills"], "launches": launches,
+        "prefill_s_per_request": snap["stage_time_s"]["prefill"]
+        / max(1, snap["prefills"]),
+        "decode_s_per_step": snap["stage_time_s"]["decode"] / max(1, steps),
+        # every weight but the embedding table is read once a decode step
+        "decode_floor_ms": (param_bytes - embed_bytes) / HBM_BYTES_PER_S
+        * 1e3,
+        "peak_mem_bytes_serving": torch.cuda.max_memory_allocated(),
+        "first_output": handles[0].output[:8]}
+    emit(result)
+    check_served(engine, [h.request for h in handles], questions, snap)
+    check_paged_launches(engine, launches, snap, len(questions))
+    result["paged"], prompts = teacher_forced_paged(engine, questions)
+    result["prefill"], _ = teacher_forced_prefill(gen, prompts)
+    abort_all(engine, "serve_moe check done")
+    result["moe_decode"] = check_moe_decode(gen)
+    result["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    emit({"phase": "serve_moe", "paged": result["paged"],
+          "prefill": result["prefill"], "moe_decode": result["moe_decode"],
+          "peak_mem_bytes": result["peak_mem_bytes"]})
+    return result
+
+
 def release_device_memory() -> None:
     """Collect what an earlier phase left (serve_plan's server, engine and
     handles hold one another in a reference cycle), hand its blocks back
@@ -2028,6 +2423,16 @@ def main() -> int:
     timed("control", phase_control, disagg, questions, plan)
     if profile_decode:
         phase_profile(engine, questions)
+    # the full-width models need the card: keep serve's encoder, corpus
+    # embedding and index for the models phase, collect everything else
+    shared = (engine.enc, engine.corpus, engine.db_vectors,
+              engine.backend.chain[0])
+    del engine, dense, disagg, plan
+    release_device_memory()
+    timed("models", phase_models, *shared, questions)
+    del shared
+    release_device_memory()
+    timed("serve_moe", phase_serve_moe)
 
     sources = {
         "paged_decode_attention": (

@@ -4,23 +4,25 @@ The weights live in a :class:`TransformerParams` module with every layer
 weight stacked on axis 0, as ``repro.models.transformer.init_params``
 lays them out; the entry points are plain functions over tensors with the
 JAX package's names and signatures.  A Python loop over layers takes the
-place of ``jax.lax.scan``.
+place of ``jax.lax.scan``.  The FFN is dense or a mixture of experts
+(``moe_ffn``: JAX's capacity dispatch, step for step).
 
 Serving subset: ``forward`` (full sequence, optional KV collection),
-``encode``, the dense-cache entry points ``make_cache``, ``decode_step``,
-``chunk_extend`` and ``greedy_generate``, and the paged ones
-``make_paged_cache``, ``paged_decode_step`` and ``paged_chunk_extend``.
+``prefill``, ``encode``, the dense-cache entry points ``make_cache``,
+``decode_step``, ``chunk_extend`` and ``greedy_generate``, the paged ones
+``make_paged_cache``, ``paged_decode_step`` and ``paged_chunk_extend``,
+and ``quantize_for_serving`` (int8 weights).
 JAX returns a new cache from the decode and extend entry points; the port
 writes into the cache IN PLACE and returns the same dict, so a step costs
 no copy of the cache.
 
-Attention ops: ``forward``, ``encode`` and ``greedy_generate`` take the
-full-sequence op ``attn_impl(q, k, v, causal)`` (the flash kernel's
-contract, unrepeated KV heads); the decode steps take their decode op.
-``None`` keeps the reference paths, which mirror JAX's einsums step for
-step.  ``chunk_extend`` and ``paged_chunk_extend`` attend a chunk to a
-cache at an offset, which is not the flash kernel's function: they keep
-their plain attention.
+Attention ops: ``forward``, ``prefill``, ``encode`` and
+``greedy_generate`` take the full-sequence op ``attn_impl(q, k, v,
+causal)`` (the flash kernel's contract, unrepeated KV heads); the decode
+steps take their decode op.  ``None`` keeps the reference paths, which
+mirror JAX's einsums step for step.  ``chunk_extend`` and
+``paged_chunk_extend`` attend a chunk to a cache at an offset, which is
+not the flash kernel's function: they keep their plain attention.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch import resolve_device
@@ -92,6 +95,18 @@ class TransformerConfig:
             ffn = n_ffn_mats * d * f
         per_layer = attn + ffn + 2 * d
         return self.n_layers * per_layer + 2 * v * d + d
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: only top_k experts)."""
+        if self.moe is None:
+            return self.param_count()
+        d, h, kv, dh, f = (self.d_model, self.n_heads, self.n_kv_heads,
+                           self.d_head, self.d_ff)
+        n_ffn_mats = 2 if self.ffn_type == "relu2" else 3
+        attn = d * h * dh + 2 * d * kv * dh + h * dh * d
+        ffn = d * self.moe.n_experts + self.moe.top_k * n_ffn_mats * d * f
+        per_layer = attn + ffn + 2 * d
+        return self.n_layers * per_layer + 2 * self.vocab_size * d + d
 
 
 # ---------------------------------------------------------------------------
@@ -161,10 +176,10 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
                 dtype=torch.float32, device=None) -> TransformerParams:
     """Random weights with ``tr.init_params``'s shapes and scales, drawn
     from ``generator`` (which must live on ``device``).  Norm weights stay
-    float32 whatever ``dtype`` is."""
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            "MoE layers are not ported yet (ROADMAP queue 1, moe_ffn)")
+    float32 whatever ``dtype`` is.  An MoE config's expert stacks are
+    drawn a layer at a time into a stack of ``dtype``: Moonlight's
+    ``w_up`` whole in float32 would take 35 GB beside its 56 GB of bf16
+    weights."""
     d, h, kv, dh, f, L = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                           cfg.d_head, cfg.d_ff, cfg.n_layers)
     device = torch.device(device if device is not None else generator.device)
@@ -172,6 +187,13 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     def stack(shape_per_layer, fan_in):
         w = _trunc_normal((L,) + shape_per_layer, generator, device)
         return (w * (1.0 / math.sqrt(fan_in))).to(dtype)
+
+    def expert_stack(shape_per_layer, fan_in):
+        w = torch.empty((L,) + shape_per_layer, dtype=dtype, device=device)
+        for i in range(L):
+            w[i] = (_trunc_normal(shape_per_layer, generator, device)
+                    * (1.0 / math.sqrt(fan_in)))
+        return w
 
     ones = lambda *s: torch.ones(s, dtype=torch.float32, device=device)  # noqa: E731
     layers: dict[str, Any] = {
@@ -181,10 +203,19 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
         "wv": stack((d, kv * dh), d),
         "wo": stack((h * dh, d), h * dh),
     }
-    if cfg.ffn_type != "relu2":
-        layers["w_gate"] = stack((d, f), d)
-    layers["w_up"] = stack((d, f), d)
-    layers["w_down"] = stack((f, d), f)
+    gated = cfg.ffn_type != "relu2"
+    if cfg.moe is None:
+        if gated:
+            layers["w_gate"] = stack((d, f), d)
+        layers["w_up"] = stack((d, f), d)
+        layers["w_down"] = stack((f, d), f)
+    else:
+        E = cfg.moe.n_experts
+        layers["router"] = stack((d, E), d)
+        if gated:
+            layers["w_gate"] = expert_stack((E, d, f), d)
+        layers["w_up"] = expert_stack((E, d, f), d)
+        layers["w_down"] = expert_stack((E, f, d), f)
     vp = cfg.padded_vocab
     embed = torch.randn((vp, d), generator=generator, device=device) * 0.02
     head = _trunc_normal((d, vp), generator, device) * (1.0 / math.sqrt(d))
@@ -192,13 +223,119 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
                               "ln_f": ones(d), "layers": layers})
 
 
+def _quantize_int8_sliced(w: torch.Tensor, max_elems: int = 1 << 27) -> dict:
+    """``cm.quantize_int8(w)`` computed over slices of axis 0 of at most
+    ``max_elems`` elements (a layer of an expert stack at full width): the
+    scale runs along the last axis, so the numbers are the same and no
+    float32 copy of the whole weight is made."""
+    step = max(1, max_elems // w[0].numel())
+    q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+    scale = torch.empty(w.shape[:-1] + (1,), dtype=torch.float32,
+                        device=w.device)
+    for i in range(0, w.shape[0], step):
+        part = cm.quantize_int8(w[i:i + step])
+        q[i:i + step] = part["q"]
+        scale[i:i + step] = part["scale"]
+    return {"q": q, "scale": scale}
+
+
+def quantize_for_serving(params: TransformerParams) -> TransformerParams:
+    """Per-channel int8 quantization of all matmul weights (paper §4):
+    every weight but the norms becomes ``{"q": int8, "scale": float32}``
+    along its last axis, as in JAX."""
+    tree = params.tree()
+    layers = {name: (w if name.startswith("ln") else _quantize_int8_sliced(w))
+              for name, w in tree["layers"].items()}
+    return TransformerParams({"ln_f": tree["ln_f"],
+                              "embed": _quantize_int8_sliced(tree["embed"]),
+                              "head": _quantize_int8_sliced(tree["head"]),
+                              "layers": layers})
+
+
 # ---------------------------------------------------------------------------
 # FFN and attention layer bodies
 # ---------------------------------------------------------------------------
 
-def moe_ffn(x, lp, cfg, compute_dtype=torch.bfloat16):
-    raise NotImplementedError(
-        "moe_ffn is not ported yet (ROADMAP queue 1: MoE after the engine)")
+def moe_route(x: torch.Tensor, lp: dict, cfg: TransformerConfig,
+              compute_dtype=torch.bfloat16):
+    """Router of ``moe_ffn``: (gates (B, S, E) f32, normalized top-k gate
+    values (B, S, k), top-k experts (B, S, k), scalar aux loss)."""
+    E, k = cfg.moe.n_experts, cfg.moe.top_k
+    # router matmul in the compute dtype, softmax statistics in f32
+    router = cm.maybe_dequant(lp["router"], compute_dtype)
+    logits = x.to(compute_dtype) @ router                        # (B, S, E)
+    gates = torch.softmax(logits.float(), dim=-1)
+    # jax.lax.top_k breaks ties by the lower index and torch.topk does
+    # not; a stable descending sort does, in JAX's order within the k
+    gval, eidx = torch.sort(gates, dim=-1, descending=True, stable=True)
+    gval, eidx = gval[..., :k], eidx[..., :k]                    # (B, S, k)
+    gval = gval / (torch.sum(gval, dim=-1, keepdim=True) + 1e-9)
+    # aux loss (Switch): E * sum_e frac_tokens_e * mean_prob_e
+    frac = torch.mean(F.one_hot(eidx[..., 0], E).float(), dim=(0, 1))
+    prob = torch.mean(gates, dim=(0, 1))
+    return gates, gval, eidx, E * torch.sum(frac * prob)
+
+
+def capacity_slots(eidx: torch.Tensor, n_experts: int, capacity: int):
+    """Each (token, choice)'s slot in the (E, C) buffer of its batch row,
+    filled in slot order ``(s0: c0..ck-1, s1, ...)``: (slot (B, S*k),
+    keep (B, S*k)); a slot past its expert's capacity is ``E*C``
+    (dropped) and not kept."""
+    B = eidx.shape[0]
+    E, C = n_experts, capacity
+    eflat = eidx.reshape(B, -1)                                  # (B, T)
+    onehot = F.one_hot(eflat, E)                                 # (B, T, E)
+    pos = torch.cumsum(onehot, dim=1) - onehot
+    pos = torch.gather(pos, 2, eflat[..., None])[..., 0]         # (B, T)
+    keep = pos < C
+    return torch.where(keep, eflat * C + pos, E * C), keep
+
+
+def moe_ffn(x: torch.Tensor, lp: dict, cfg: TransformerConfig,
+            compute_dtype=torch.bfloat16):
+    """x: (B, S, d) -> ((B, S, d), scalar aux load-balancing loss).
+
+    JAX's capacity dispatch per batch row, step for step: each token's
+    top-k experts fill slots of an (E, C) buffer in slot order
+    (``capacity_slots``), ``C = ceil(S * k / E * capacity_factor)`` from
+    the (padded) S, and a slot past an expert's C is dropped.  Every
+    expert runs on its C slots, filled or not.
+    """
+    B, S, d = x.shape
+    E, k = cfg.moe.n_experts, cfg.moe.top_k
+    C = max(1, int(math.ceil(S * k / E * cfg.moe.capacity_factor)))
+    _gates, gval, eidx, aux = moe_route(x, lp, cfg, compute_dtype)
+    T = S * k
+    slot, keep = capacity_slots(eidx, E, C)
+
+    # which token fills each (expert, capacity) slot: JAX scatters with
+    # mode="drop"; here the dropped slots land in row E*C, sliced off
+    tok_ids = torch.arange(T, device=x.device).expand(B, T)
+    inv = torch.full((B, E * C + 1), T, dtype=torch.long, device=x.device)
+    inv.scatter_(1, slot, tok_ids)
+    inv = inv[:, :E * C]                                         # (B, E*C)
+    # jnp.repeat(x, k, axis=1), by a broadcast: no host sync on the card
+    x_slots = x[:, :, None].expand(B, S, k, d).reshape(B, T, d).to(
+        compute_dtype)
+    x_pad = F.pad(x_slots, (0, 0, 0, 1))                         # row T = 0
+    hb = torch.gather(x_pad, 1, inv[..., None].expand(B, E * C, d))
+    hb = hb.reshape(B, E, C, d)
+
+    wu = cm.maybe_dequant(lp["w_up"], compute_dtype)
+    wd = cm.maybe_dequant(lp["w_down"], compute_dtype)
+    up = torch.einsum("becd,edf->becf", hb, wu)
+    if cfg.ffn_type == "relu2":
+        act = torch.square(torch.relu(up))
+    else:
+        wg = cm.maybe_dequant(lp["w_gate"], compute_dtype)
+        act = cm.swiglu(torch.einsum("becd,edf->becf", hb, wg), up)
+    out = torch.einsum("becf,efd->becd", act, wd).reshape(B, E * C, d)
+
+    slot_safe = torch.clamp(slot, max=E * C - 1)
+    y = torch.gather(out, 1, slot_safe[..., None].expand(B, T, d))  # (B, T, d)
+    y = torch.where(keep[..., None], y, 0.0)
+    y = (y.reshape(B, S, k, d) * gval[..., None].to(compute_dtype)).sum(dim=2)
+    return y.to(x.dtype), aux
 
 
 def dense_ffn(x: torch.Tensor, lp: dict, compute_dtype=torch.bfloat16,
@@ -215,9 +352,10 @@ def dense_ffn(x: torch.Tensor, lp: dict, compute_dtype=torch.bfloat16,
 
 
 def _ffn(xn, lp, cfg, compute_dtype):
+    """(FFN output, the MoE aux loss or None for a dense FFN)."""
     if cfg.moe is not None:
         return moe_ffn(xn, lp, cfg, compute_dtype)
-    return dense_ffn(xn, lp, compute_dtype, cfg.ffn_type)
+    return dense_ffn(xn, lp, compute_dtype, cfg.ffn_type), None
 
 
 def _qkv(x, lp, cfg, positions, compute_dtype):
@@ -292,13 +430,17 @@ def forward(params: TransformerParams, tokens: torch.Tensor,
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     layers = params["layers"]
     ks, vs = [], []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
         lp = layer_params(layers, i)
         h, k, v = _attn_full_seq(cm.rms_norm(x, lp["ln1"], cfg.norm_eps),
                                  lp, cfg, positions, compute_dtype, attn_impl)
         x = x + h
-        x = x + _ffn(cm.rms_norm(x, lp["ln2"], cfg.norm_eps), lp, cfg,
-                     compute_dtype)
+        h, a = _ffn(cm.rms_norm(x, lp["ln2"], cfg.norm_eps), lp, cfg,
+                    compute_dtype)
+        x = x + h
+        if a is not None:
+            aux = aux + a
         if collect_cache:
             ks.append(k)
             vs.append(v)
@@ -306,10 +448,24 @@ def forward(params: TransformerParams, tokens: torch.Tensor,
     if return_hidden:
         return x
     logits = _head(params, x, compute_dtype)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = aux / cfg.n_layers
     if collect_cache:
         return logits, aux, {"k": torch.stack(ks), "v": torch.stack(vs)}
     return logits, aux
+
+
+def prefill(params: TransformerParams, tokens: torch.Tensor,
+            cfg: TransformerConfig, cache_len: int | None = None,
+            compute_dtype=torch.bfloat16, attn_impl=None):
+    """Prefix stage: (last-token logits (B, V), KV cache {"k","v"}:
+    (L, B, max(S, cache_len), H_kv, D), zero past S)."""
+    S = tokens.shape[1]
+    logits, _aux, cache = forward(params, tokens, cfg, compute_dtype,
+                                  collect_cache=True, attn_impl=attn_impl)
+    if cache_len is not None and cache_len > S:
+        cache = {k: F.pad(v, (0, 0, 0, 0, 0, cache_len - S))
+                 for k, v in cache.items()}
+    return logits[:, -1], cache
 
 
 def encode(params: TransformerParams, tokens: torch.Tensor,
@@ -409,8 +565,9 @@ def decode_step(params: TransformerParams, cache: dict, token: torch.Tensor,
         out = attn(q, kc.to(compute_dtype), vc.to(compute_dtype), cache_len)
         wo = cm.maybe_dequant(lp["wo"], compute_dtype)
         x = x + (out.reshape(B, 1, cfg.n_heads * d) @ wo).to(x.dtype)
-        x = x + _ffn(cm.rms_norm(x, lp["ln2"], cfg.norm_eps), lp, cfg,
-                     compute_dtype)
+        h, _ = _ffn(cm.rms_norm(x, lp["ln2"], cfg.norm_eps), lp, cfg,
+                    compute_dtype)
+        x = x + h
     x = cm.rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = _head(params, x, compute_dtype)[:, 0]               # (B, V)
     return logits, cache
@@ -496,8 +653,9 @@ def chunk_extend(params: TransformerParams, cache: dict, slot: int,
         out = torch.einsum("bhqk,bkhd->bqhd", probs, vr)
         wo = cm.maybe_dequant(lp["wo"], compute_dtype)
         x = x + (out.reshape(1, T, cfg.n_heads * cfg.d_head) @ wo).to(x.dtype)
-        x = x + _ffn(cm.rms_norm(x, lp["ln2"], cfg.norm_eps), lp, cfg,
-                     compute_dtype)
+        h, _ = _ffn(cm.rms_norm(x, lp["ln2"], cfg.norm_eps), lp, cfg,
+                    compute_dtype)
+        x = x + h
     return cache
 
 
@@ -574,8 +732,9 @@ def paged_decode_step(params: TransformerParams, cache: dict,
                    block_tables, cache_len)
         wo = cm.maybe_dequant(lp["wo"], compute_dtype)
         x = x + (out.reshape(B, 1, cfg.n_heads * cfg.d_head) @ wo).to(x.dtype)
-        x = x + _ffn(cm.rms_norm(x, lp["ln2"], cfg.norm_eps), lp, cfg,
-                     compute_dtype)
+        h, _ = _ffn(cm.rms_norm(x, lp["ln2"], cfg.norm_eps), lp, cfg,
+                    compute_dtype)
+        x = x + h
     x = cm.rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = _head(params, x, compute_dtype)[:, 0]               # (B, V)
     return logits, cache
@@ -632,8 +791,9 @@ def paged_chunk_extend(params: TransformerParams, cache: dict,
         out = torch.einsum("bhqk,bkhd->bqhd", probs, vr)
         wo = cm.maybe_dequant(lp["wo"], compute_dtype)
         x = x + (out.reshape(1, T, cfg.n_heads * cfg.d_head) @ wo).to(x.dtype)
-        x = x + _ffn(cm.rms_norm(x, lp["ln2"], cfg.norm_eps), lp, cfg,
-                     compute_dtype)
+        h, _ = _ffn(cm.rms_norm(x, lp["ln2"], cfg.norm_eps), lp, cfg,
+                    compute_dtype)
+        x = x + h
     xf = cm.rms_norm(x, params["ln_f"], cfg.norm_eps)
     last = xf[0, max(n_valid - 1, 0)]
     return cache, _head(params, last, compute_dtype)             # (V,)

@@ -218,6 +218,9 @@ CUDA_CASES = {
     "short": (3, 5, 8, 1, 16, None),
     "wide": (1, 200, 4, 4, 128, None),
     "kv_len": (2, 100, 4, 2, 64, 37),
+    # Moonlight-16B-A3B's and ChatGLM3-6B's 1,024-token prefills
+    "moe_prefill": (1, 1024, 16, 16, 128, None),
+    "g16_prefill": (1, 1024, 32, 2, 128, None),
 }
 
 

@@ -400,6 +400,19 @@ def test_paged_kernel_at_serve_plan_shape(cuda, dt):
     _check_paged(arrs, dt, cuda, share=(124, 125))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["bf16", "f32"])
+@pytest.mark.parametrize("h_kv,g", [(16, 1), (8, 4), (2, 16)],
+                         ids=["moonlight", "minitron", "chatglm3"])
+def test_paged_kernel_at_model_heads(cuda, h_kv, g, dt):
+    """serve's 8 slots of 64 pages of 16 at D=128 under the KV heads of
+    Moonlight-16B-A3B (16, G=1), Minitron-8B (8, G=4) and ChatGLM3-6B
+    (2, G=16: two blocks of G=8)."""
+    lengths = [0, 1, 537, 1025, 300, 300, 1024, 16]
+    arrs = _problem(8, h_kv, g, 128, 16, 64, lengths, seed=h_kv + g)
+    _check_paged(arrs, dt, cuda, share=(4, 5))
+
+
 DENSE_CUDA_CASES = {**DENSE_CASES,
                     "ragged_lengths": (8, 2, 4, 128, 300,
                                        [0, 1, 127, 128, 129, 299, 300, 301])}

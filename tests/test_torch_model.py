@@ -292,5 +292,7 @@ def test_init_params_shapes_and_scales():
     # the standard deviation of N(0, 1) cut at +-3 is 0.9866
     assert abs(float(layers["w_down"].float().std()) * np.sqrt(64)
                - 0.9866) < 0.05
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr.moe_ffn(None, None, None)
+    moe = tr.init_params(dataclasses.replace(cfg, moe=tr.MoEConfig(4, 2)),
+                         torch.Generator().manual_seed(0), device="cpu")
+    assert moe["layers"]["router"].shape == (2, 48, 4)
+    assert moe["layers"]["w_up"].shape == (2, 4, 48, 64)
