@@ -6,7 +6,8 @@ over the disaggregated ``RAGCluster``, with IBM Granite-3.0-2B at full
 width (random weights from a seed), an encoder of ENCODER_120M's widths
 with Granite's vocabulary, and IVF-PQ retrieval; then Minitron-8B and
 ChatGLM3-6B in bf16 and int8 and the mixture-of-experts Moonlight-16B-A3B,
-each at full width -- and holds every CUDA kernel of those paths against
+each at full width; and the LM trainer, Granite-3.0-2B trained at full
+width -- and holds every CUDA kernel of those paths against
 its plain PyTorch version.  Full-sequence
 attention (prefill, the encoder, greedy generation's prompt pass) runs the
 flash attention kernel on every path.  The paged path decodes through the
@@ -83,6 +84,21 @@ lines (and its seconds as a ``phase_seconds`` line), in order:
                ``quantize_for_serving``, the largest gap between the bf16
                and int8 next-token distributions (printed, not gated),
                and 4 questions through a paged engine on the int8 weights
+  train        on the emptied card, the LM trainer (no serving kernel
+               runs on it; launches are checked to stay 0): one step of a
+               2-layer slice of Granite-3.0-2B at full width in float32
+               on the card and on the CPU (loss, gradient norm, updated
+               parameters); Granite-3.0-2B at full width through
+               ``launch.train.main`` at its defaults (one step lowers the
+               loss on its batch; 5 steps, every loss finite); the step at
+               4 x 2,048 tokens with remat timed (forward+backward and
+               AdamW on CUDA events, tokens/s, model FLOPs against the
+               bf16 peak, AdamW against its bytes bound, peak memory) and
+               the stacks' gradients through ``unstack_layers`` against
+               per-layer indexing; ``with_error_feedback`` over the
+               full-width gradients (the int8 bound per leaf, its time);
+               a checkpoint restart on the reduced config under ``build/``
+               (resumed at step 7, history equal to an uninterrupted run)
   serve_moe    last, on the emptied card: Moonlight-16B-A3B in the
                reference's config at full width (48 layers, 64 experts
                top-6, 56.1 GB of bf16 weights), an encoder of
@@ -102,7 +118,8 @@ device and the repository around it.
 
     python3 chip_smoke.py             # every phase above
     python3 chip_smoke.py --profile   # and a torch.profiler breakdown of
-                                      # five decode ticks
+                                      # five decode ticks and of one
+                                      # timed train step
 """
 
 from __future__ import annotations
@@ -2165,6 +2182,417 @@ def buffer_bytes(module) -> int:
     return sum(t.numel() * t.element_size() for t in module.buffers())
 
 
+# ---------------------------------------------------------------------------
+# train: the LM trainer at Granite-3.0-2B's full width
+# ---------------------------------------------------------------------------
+
+#: the train phase's model (the launcher's default arch)
+TRAIN_ARCH = "granite-3-2b"
+#: batch x sequence of the timed steps, which recompute each layer (remat)
+TRAIN_TIMED_SHAPE = (4, 2048)
+TRAIN_WARMUP_STEPS = 2
+TRAIN_TIMED_STEPS = 5
+#: the launcher's optimizer settings (``launch/train.py``)
+TRAIN_OPT = {"lr": 1e-3, "warmup_steps": 10}
+
+
+def train_batch(vocab: int, batch: int, seq: int, n: int, seed: int = 0):
+    """``lm_batches`` on the card: a list of ``{"tokens", "labels"}``."""
+    import torch
+    from repro_torch.data.synthetic import lm_batches
+    return [{k: torch.from_numpy(v).to(DEVICE) for k, v in b.items()}
+            for b in lm_batches(vocab, batch, seq, n, seed=seed)]
+
+
+def check_train_parity(card: str) -> dict:
+    """One ``make_train_step`` step of a 2-layer slice of Granite at full
+    width (0.33 B parameters), float32 compute with TF32 off, on the card
+    and on the CPU from the same weights and batch: loss, gradient norm
+    and the updated parameters."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tr
+    from repro_torch.training.optim import AdamWConfig, lr_schedule
+    from repro_torch.training.pytree import leaves, tree_map
+    from repro_torch.training.train_loop import init_state, make_train_step
+
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH).config, n_layers=2)
+    host = tr.init_params(cfg, torch.Generator().manual_seed(0),
+                          device="cpu").tree()
+    opt = AdamWConfig(**TRAIN_OPT)
+
+    def loss_fn(p, b):
+        return tr.loss_fn(p, b["tokens"], b["labels"], cfg,
+                          compute_dtype=torch.float32)
+    step = make_train_step(loss_fn, opt)
+    # a copy: the CPU state's leaves are views of ``host``, updated in place
+    card_state = init_state(tree_map(lambda t: t.to(DEVICE, copy=True), host))
+    cpu_state = init_state(host)
+    batch = train_batch(cfg.vocab_size, 2, 64, 1)[0]
+    t0 = time.perf_counter()
+    _, m_card = step(card_state, batch)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, m_cpu = step(cpu_state, {k: v.cpu() for k, v in batch.items()})
+    t_cpu = time.perf_counter() - t0
+    lr1 = float(lr_schedule(torch.tensor(1, dtype=torch.int32), opt))
+    worst, n_off, n = 0.0, 0, 0
+    with torch.no_grad():
+        for a, b in zip(leaves(card_state["params"]),
+                        leaves(cpu_state["params"])):
+            d = (a.cpu() - b).abs()
+            worst = max(worst, float(d.max()))
+            n_off += int((d > 1e-3 * lr1).sum())
+            n += d.numel()
+    result = {
+        "phase": "train", "part": "parity", "card": card,
+        "config": {"n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                   "vocab": cfg.vocab_size}, "params": n,
+        "batch": [2, 64], "compute_dtype": "float32",
+        "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+        "loss": [float(m_card["loss"]), float(m_cpu["loss"])],
+        "grad_norm": [float(m_card["grad_norm"]), float(m_cpu["grad_norm"])],
+        "param_max_abs_diff": worst, "lr_step1": lr1,
+        "params_off_by_more_than_1e-3_lr": n_off,
+        "step_s": {"card": t_card, "cpu": t_cpu},
+        "tol": {"loss_rtol": 1e-5, "grad_norm_rtol": 1e-4,
+                "param_max_abs": 2 * lr1, "param_off_share": 1e-3},
+        "tol_reason": "float32 on both, summed in other orders: the loss "
+                      "to 1e-5 and the norm to 1e-4 relative; AdamW's first "
+                      "step moves a parameter by lr * g / (|g| + eps), +-lr "
+                      "for any gradient well above eps, so a gradient near "
+                      "0 can step the other way on the other device (at "
+                      "most 2 lr apart); such parameters must stay rare"}
+    emit(result)
+    tol = result["tol"]
+    if abs(result["loss"][0] - result["loss"][1]) > tol["loss_rtol"] * abs(
+            result["loss"][1]):
+        raise AssertionError("train step: the card's loss differs from the "
+                             "CPU's")
+    if abs(result["grad_norm"][0] - result["grad_norm"][1]) > tol[
+            "grad_norm_rtol"] * result["grad_norm"][1]:
+        raise AssertionError("train step: the card's gradient norm differs "
+                             "from the CPU's")
+    if worst > tol["param_max_abs"] or n_off > tol["param_off_share"] * n:
+        raise AssertionError("train step: the card's updated parameters "
+                             "differ from the CPU's")
+    return result
+
+
+def train_loss(params, batch, cfg, **kw) -> float:
+    import torch
+    from repro_torch.models import transformer as tr
+    with torch.no_grad():
+        return float(tr.loss_fn(params, batch["tokens"], batch["labels"],
+                                cfg, **kw))
+
+
+def check_train_launcher(card: str):
+    """Granite-3.0-2B at full width through ``launch.train.main`` at its
+    defaults (batch 4, seq 64, 40 layers, bf16 compute, f32 state): one
+    step, then the loss on the same batch must be lower; then the default
+    5 steps, every loss finite.  Returns the result and the trained state
+    (the timed part goes on from it)."""
+    import math
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train as launch_train
+    from repro_torch.training.pytree import leaves
+
+    cfg = get_arch(TRAIN_ARCH).config
+    argv = ["--arch", TRAIN_ARCH, "--device", DEVICE]
+    reset_launches()
+    t0 = time.perf_counter()
+    state, hist1 = launch_train.main(argv + ["--steps", "1"])
+    torch.cuda.synchronize()
+    t_one = time.perf_counter() - t0
+    first = train_batch(cfg.vocab_size, 4, 64, 1)[0]    # the launcher's
+    after = train_loss(state["params"], first, cfg)
+    del state
+    release_device_memory()
+    t0 = time.perf_counter()
+    state, hist = launch_train.main(argv)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    result = {
+        "phase": "train", "part": "launcher", "card": card,
+        "model": TRAIN_ARCH,
+        "params": sum(t.numel() for t in leaves(state["params"])),
+        "one_step_s": t_one, "loss_before": hist1[0]["loss"],
+        "loss_after_one_step": after,
+        "losses": [h["loss"] for h in hist],
+        "step_s": [h["time"] for h in hist],
+        "wall_s": time.perf_counter() - t0, "kernel_launches": launches,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    emit(result)
+    if not all(math.isfinite(x) for x in result["losses"] + [after]):
+        raise AssertionError("train launcher: a loss is not finite")
+    if not after < result["loss_before"]:
+        raise AssertionError("train launcher: one step did not lower the "
+                             "loss on its batch")
+    if any(launches.values()):
+        raise AssertionError("train launcher: the training path launched "
+                             "a serving kernel")
+    return result, state
+
+
+def time_train_step(state, card: str, profile: bool = False) -> dict:
+    """The step at batch 4 x seq 2,048 with every layer recomputed
+    (remat): forward+backward and AdamW on CUDA events, medians of
+    TRAIN_TIMED_STEPS after TRAIN_WARMUP_STEPS; tokens/s, model FLOPs
+    (6 N a token plus causal attention) against the bf16 peak, AdamW
+    against its bytes bound (28 B a parameter), peak memory.  Beside it,
+    forward+backward at the launcher's shape with the stacked weights
+    indexed layer by layer (``layer_params``) against ``unstack_layers``;
+    with ``profile``, one more step traced (``profile_train_step``)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tr
+    from repro_torch.training.optim import AdamWConfig, adamw_update
+    from repro_torch.training.pytree import leaves
+    from repro_torch.training.train_loop import value_and_grad
+
+    cfg = get_arch(TRAIN_ARCH).config
+    params, opt_state = state["params"], state["opt"]
+    n_params = sum(t.numel() for t in leaves(params))
+    B, S = TRAIN_TIMED_SHAPE
+    opt = AdamWConfig(**TRAIN_OPT)
+    grad_fn = value_and_grad(lambda p, b: tr.loss_fn(
+        p, b["tokens"], b["labels"], cfg, remat=True))
+    batches = train_batch(cfg.vocab_size, B, S,
+                          TRAIN_WARMUP_STEPS + TRAIN_TIMED_STEPS, seed=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fb_ms, adam_ms, wall_ms, losses = [], [], [], []
+    for b in batches:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        loss, grads = grad_fn(params, b)
+        ev[1].record()
+        adamw_update(grads, opt_state, params, opt)
+        ev[2].record()
+        ev[2].synchronize()
+        wall_ms.append((time.perf_counter() - t0) * 1e3)
+        fb_ms.append(ev[0].elapsed_time(ev[1]))
+        adam_ms.append(ev[1].elapsed_time(ev[2]))
+        losses.append(float(loss))
+        del grads
+    peak = torch.cuda.max_memory_allocated()
+    med = lambda xs: float(np.median(xs[TRAIN_WARMUP_STEPS:]))  # noqa: E731
+    step_ms = med(wall_ms)
+    tokens = B * S
+    attn_flops = 6 * B * cfg.n_heads * cfg.d_head * S * S * cfg.n_layers
+    model_flops = 6 * n_params * tokens + attn_flops
+    adam_bound_ms = 28 * n_params / HBM_BYTES_PER_S * 1e3
+    result = {
+        "phase": "train", "part": "timed", "card": card,
+        "model": TRAIN_ARCH, "params": n_params, "batch": [B, S],
+        "remat": True, "compute_dtype": "bfloat16",
+        "warmup_steps": TRAIN_WARMUP_STEPS, "timed_steps": TRAIN_TIMED_STEPS,
+        "losses": losses, "fwd_bwd_ms": fb_ms, "adamw_ms": adam_ms,
+        "step_wall_ms": wall_ms,
+        "median_fwd_bwd_ms": med(fb_ms), "median_adamw_ms": med(adam_ms),
+        "median_step_ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
+        "model_flops": model_flops, "attention_flops": attn_flops,
+        "model_flops_share_of_989_tflops": model_flops / (step_ms / 1e3)
+        / PEAK_OPS_PER_S["bfloat16"],
+        "adamw_bound_ms": adam_bound_ms,
+        "adamw_over_bound": med(adam_ms) / adam_bound_ms,
+        "peak_mem_bytes": peak}
+    result["stack_grad"] = time_stack_grad(params, cfg)
+    if profile:
+        result["profile"] = profile_train_step(
+            grad_fn, params, opt_state, opt, batches[-1])
+    emit(result)
+    return result
+
+
+def profile_train_step(grad_fn, params, opt_state, opt, batch) -> dict:
+    """Where the timed step's time goes (``--profile``): one step traced
+    by ``torch.profiler``, its device time by kernel against the host
+    clock."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.training.optim import adamw_update
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, grads = grad_fn(params, batch)
+        adamw_update(grads, opt_state, params, opt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    del grads
+    return {"wall_ms_per_step": wall * 1e3,
+            **kernel_breakdown(prof, wall, 1, "step", top_k=12)}
+
+
+def time_stack_grad(params, cfg, reps: int = 2) -> dict:
+    """Forward+backward at the launcher's shape (4 x 64, bf16) with each
+    stack unbound once (``unstack_layers``, the port's way) and indexed
+    layer by layer (each layer's gradient a zero-filled stack-sized
+    tensor), alternating, ``reps`` times each after a warm-up."""
+    import torch
+    from repro_torch.models import transformer as tr
+    from repro_torch.training.train_loop import value_and_grad
+
+    b = train_batch(cfg.vocab_size, 4, 64, 1)[0]
+    grad_fn = value_and_grad(lambda p, bb: tr.loss_fn(
+        p, bb["tokens"], bb["labels"], cfg))
+    unbound = tr.unstack_layers
+
+    def per_layer(layers, n_layers):
+        return [tr.layer_params(layers, i) for i in range(n_layers)]
+
+    def timed(split):
+        tr.unstack_layers = split
+        try:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            _, grads = grad_fn(params, b)
+            ev[1].record()
+            ev[1].synchronize()
+            del grads
+            return ev[0].elapsed_time(ev[1])
+        finally:
+            tr.unstack_layers = unbound
+    timed(unbound)
+    timed(per_layer)
+    out = {"unbind_ms": [], "per_layer_select_ms": []}
+    for _ in range(reps):
+        out["unbind_ms"].append(timed(unbound))
+        out["per_layer_select_ms"].append(timed(per_layer))
+        out["per_layer_select_ms"].append(timed(per_layer))
+        out["unbind_ms"].append(timed(unbound))
+    return out
+
+
+def check_train_compression(state, card: str) -> dict:
+    """``with_error_feedback`` over Granite's full-width gradients (one
+    batch at the launcher's shape; the moments are dropped first to make
+    room): each leaf within the int8 error bound of
+    ``test_int8_compression_error_bound`` (amax / 127 + 1e-6), and the
+    time of a call from a zero residual and of one carrying it."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tr
+    from repro_torch.training import compression as comp
+    from repro_torch.training.pytree import leaves
+    from repro_torch.training.train_loop import value_and_grad
+
+    cfg = get_arch(TRAIN_ARCH).config
+    state.pop("opt")
+    release_device_memory()
+    params = state["params"]
+    b = train_batch(cfg.vocab_size, 4, 64, 1, seed=2)[0]
+    _, grads = value_and_grad(lambda p, bb: tr.loss_fn(
+        p, bb["tokens"], bb["labels"], cfg))(params, b)
+    residual = comp.init_residual(params)
+    times = []
+    for i in range(2):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        sent, new_residual = comp.with_error_feedback(grads, residual)
+        ev[1].record()
+        ev[1].synchronize()
+        times.append(ev[0].elapsed_time(ev[1]))
+        if i == 0:
+            worst = 0.0
+            for g, r in zip(leaves(grads), leaves(new_residual)):
+                bound_ = float(g.abs().max()) / 127.0 + 1e-6
+                worst = max(worst, float(r.abs().max()) / bound_)
+        del sent
+        residual = new_residual
+    n_bytes = sum(g.numel() for g in leaves(grads))
+    result = {"phase": "train", "part": "compression", "card": card,
+              "leaves": len(leaves(grads)), "elements": n_bytes,
+              "error_over_bound_max": worst, "ms": times,
+              "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    emit(result)
+    if worst > 1.0:
+        raise AssertionError("with_error_feedback: a leaf exceeds the int8 "
+                             "error bound")
+    return result
+
+
+def check_train_restart(card: str) -> dict:
+    """On the reduced Granite config on the card: 10 steps uninterrupted;
+    then 6 steps with a checkpoint every 3 (under ``build/``), ended there
+    and resumed to 10 from a fresh state.  The resumed run starts at step
+    7, and the two histories agree."""
+    import shutil
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tr
+    from repro_torch.training import checkpoint as ck
+    from repro_torch.training.optim import AdamWConfig
+    from repro_torch.training.train_loop import (TrainConfig, init_state,
+                                                 train)
+
+    cfg = get_arch(TRAIN_ARCH).reduced()
+    ckpt_dir = ROOT / "build" / "train_restart"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    batches = train_batch(cfg.vocab_size, 4, 64, 10, seed=3)
+    opt = AdamWConfig(**TRAIN_OPT)
+
+    def fresh():
+        return init_state(tr.init_params(
+            cfg, torch.Generator(device=DEVICE).manual_seed(0),
+            device=DEVICE))
+
+    def loss_fn(p, b):
+        return tr.loss_fn(p, b["tokens"], b["labels"], cfg)
+    _, full = train(fresh(), batches, loss_fn, TrainConfig(steps=10), opt)
+    _, first = train(fresh(), batches[:6], loss_fn,
+                     TrainConfig(steps=6, ckpt_dir=str(ckpt_dir),
+                                 ckpt_every=3), opt)
+    saved = ck.latest_step(ckpt_dir)
+    _, resumed = train(fresh(), batches[6:], loss_fn,
+                       TrainConfig(steps=10, ckpt_dir=str(ckpt_dir),
+                                   ckpt_every=3), opt)
+    got = first + resumed
+    rel = {key: max(abs(a[key] - b[key]) / abs(b[key])
+                    for a, b in zip(got, full))
+           for key in ("loss", "grad_norm")}
+    result = {"phase": "train", "part": "restart", "card": card,
+              "model": cfg.name, "saved_step": saved,
+              "resumed_steps": [h["step"] for h in resumed],
+              "losses": [h["loss"] for h in got],
+              "uninterrupted_losses": [h["loss"] for h in full],
+              "max_rel_diff": rel, "tol_rtol": 1e-3,
+              "tol_reason": "bf16 compute; the card's embedding backward "
+                            "accumulates with atomics, so a rerun may round "
+                            "a gradient otherwise"}
+    emit(result)
+    if saved != 6 or result["resumed_steps"] != [7, 8, 9, 10]:
+        raise AssertionError("train restart: did not resume at step 7")
+    if len(got) != 10 or max(rel.values()) > result["tol_rtol"]:
+        raise AssertionError("train restart: the resumed history differs "
+                             "from the uninterrupted one")
+    return result
+
+
+def phase_train(profile: bool = False) -> dict:
+    """The LM trainer on the emptied card: card-vs-CPU parity of one step
+    on a 2-layer full-width slice, Granite-3.0-2B at full width through
+    ``launch.train.main`` (descent, finite losses), the timed step,
+    gradient compression, then the restart check on the reduced config.
+    No serving kernel runs on this path."""
+    card = nvidia_smi_line()
+    out = {"parity": check_train_parity(card)}
+    release_device_memory()
+    out["launcher"], state = check_train_launcher(card)
+    out["timed"] = time_train_step(state, card, profile)
+    out["compression"] = check_train_compression(state, card)
+    del state
+    release_device_memory()
+    out["restart"] = check_train_restart(card)
+    return out
+
+
 #: the MoE phase: Moonlight-16B-A3B in the reference's config
 MOE_ARCH = "moonshot-v1-16b-a3b"
 
@@ -2336,6 +2764,44 @@ def release_device_memory() -> None:
     torch.cuda.reset_peak_memory_stats()
 
 
+#: kinds of device kernel by marks in their names (the first kind that
+#: matches wins): cuBLAS/CUTLASS matmuls, softmax, copies and casts,
+#: other elementwise passes, reductions
+KERNEL_KINDS = (("matmul", ("gemm", "nvjet", "cutlass", "xmma")),
+                ("softmax", ("softmax",)),
+                ("copy", ("direct_copy", "copy_kernel", "memcpy")),
+                ("elementwise", ("elementwise",)),
+                ("reduce", ("reduce",)))
+
+
+def kernel_breakdown(prof, wall_s: float, n: int, unit: str,
+                     top_k: int = 8) -> dict:
+    """Device time a ``unit`` (of ``n`` in the trace), its share of the
+    host-clock ``wall_s``, launches, device time by ``KERNEL_KINDS``, and
+    the ``top_k`` kernels by device time, from a ``torch.profiler``
+    trace."""
+    import torch
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top_k]
+    by_kind: dict = {}
+    for e in kernels:
+        kind = next((k for k, marks in KERNEL_KINDS
+                     if any(m in e.key.lower() for m in marks)), "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + (
+            e.self_device_time_total / n / 1e3)
+    return {f"device_ms_per_{unit}": device_us / n / 1e3,
+            "device_busy_share": device_us / 1e6 / wall_s,
+            f"kernel_launches_per_{unit}": sum(e.count for e in kernels) / n,
+            f"ms_per_{unit}_by_kind": by_kind,
+            "top_kernels": [{"name": e.key[:60],
+                             f"ms_per_{unit}": e.self_device_time_total
+                             / n / 1e3,
+                             f"calls_per_{unit}": e.count / n}
+                            for e in top]}
+
+
 def phase_profile(engine, questions, ticks: int = 5) -> dict:
     """Where a decode tick's time goes (``--profile``): fill every slot,
     time ``ticks`` pure decode ticks on the host clock, then trace as many
@@ -2359,21 +2825,9 @@ def phase_profile(engine, questions, ticks: int = 5) -> dict:
         for _ in range(ticks):
             engine.tick()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_us = sum(e.self_device_time_total for e in kernels)
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     result = {"phase": "profile", "ticks": ticks,
               "wall_ms_per_tick": wall / ticks * 1e3,
-              "device_ms_per_tick": device_us / ticks / 1e3,
-              "device_busy_share": device_us / 1e6 / wall,
-              "kernel_launches_per_tick": sum(e.count for e in kernels)
-              / ticks,
-              "top_kernels": [{"name": e.key[:60],
-                               "ms_per_tick": e.self_device_time_total
-                               / ticks / 1e3,
-                               "calls_per_tick": e.count / ticks}
-                              for e in top]}
+              **kernel_breakdown(prof, wall, ticks, "tick")}
     emit(result)
     for slot in list(engine.active):
         engine.abort_request(engine.active[slot], "profile done")
@@ -2397,7 +2851,7 @@ def main() -> int:
         print("chip_smoke: src/repro_torch not found next to this script",
               file=sys.stderr)
         return 2
-    profile_decode = "--profile" in sys.argv[1:]
+    profile = "--profile" in sys.argv[1:]
 
     def timed(name, fn, *args):
         t0 = time.perf_counter()
@@ -2421,7 +2875,7 @@ def main() -> int:
     timed("check", phase_check, engine, dense, questions, disagg["cluster"])
     timed("chaos", phase_chaos, disagg["cluster"], questions)
     timed("control", phase_control, disagg, questions, plan)
-    if profile_decode:
+    if profile:
         phase_profile(engine, questions)
     # the full-width models need the card: keep serve's encoder, corpus
     # embedding and index for the models phase, collect everything else
@@ -2431,6 +2885,8 @@ def main() -> int:
     release_device_memory()
     timed("models", phase_models, *shared, questions)
     del shared
+    release_device_memory()
+    timed("train", phase_train, profile)
     release_device_memory()
     timed("serve_moe", phase_serve_moe)
 

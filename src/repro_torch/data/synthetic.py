@@ -1,6 +1,7 @@
-"""Synthetic RAG corpora with topical structure, so retrieval quality is
-measurable.  A copy of ``repro.data.synthetic.topical_corpus`` (numpy
-only): the port and the JAX package draw the same corpus from a seed."""
+"""Synthetic data: RAG corpora with topical structure, so retrieval quality
+is measurable, and LM token streams for training.  Copies of
+``repro.data.synthetic.topical_corpus`` and ``lm_batches`` (numpy only):
+the port and the JAX package draw the same data from a seed."""
 
 from __future__ import annotations
 
@@ -30,3 +31,21 @@ def topical_corpus(n_docs: int, doc_len: int, vocab: int, n_topics: int = 8,
         return sample(topic, q_len)
 
     return corpus, doc_topics, make_question
+
+
+def lm_batches(vocab: int, batch: int, seq: int, steps: int, seed: int = 0):
+    """Markov-ish token stream: next-token structure a tiny LM can learn.
+    A copy of ``repro.data.synthetic.lm_batches``: the same seed gives the
+    same int32 tokens."""
+    rng = np.random.default_rng(seed)
+    trans = rng.integers(0, vocab, size=(vocab,))
+    for _ in range(steps):
+        first = rng.integers(0, vocab, size=(batch, 1))
+        toks = [first[:, 0]]
+        for _ in range(seq):
+            nxt = trans[toks[-1]]
+            nxt = np.where(rng.random(batch) < 0.1,
+                           rng.integers(0, vocab, batch), nxt)
+            toks.append(nxt)
+        arr = np.stack(toks, 1).astype(np.int32)
+        yield {"tokens": arr[:, :-1], "labels": arr[:, 1:]}

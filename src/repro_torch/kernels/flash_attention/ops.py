@@ -11,6 +11,11 @@ A CUDA tensor launches ``csrc/flash_attention.cu`` (or the wrapper raises
 on a dtype, shape, layout or alignment the kernel does not take); a CPU
 tensor goes to the plain version, ``ref.flash_attention_ref``.
 ``flash_attention.launches`` counts kernel launches.
+
+The kernel is forward only: it writes its output through a raw pointer,
+so autograd would see a constant.  The wrapper therefore raises when grad
+mode is on and q, k or v requires grad; training runs the plain attention
+(``attn_impl=None``), as the JAX package trains through its einsums.
 """
 
 from __future__ import annotations
@@ -33,6 +38,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, S, H, D)."""
     b, s, h, d = q.shape
     tensors = (q, k, v)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            "flash_attention has no backward: its output would carry no "
+            "gradient to q, k or v.  Differentiate through the plain "
+            "attention (attn_impl=None), or call the kernel under "
+            "torch.no_grad()")
     if not q.is_cuda or any(t.device != q.device for t in tensors):
         raise ValueError("flash_attention: all inputs must be on one CUDA "
                          "device")

@@ -174,3 +174,28 @@ def maybe_dequant(w, dtype=torch.bfloat16) -> torch.Tensor:
     if isinstance(w, dict) and "q" in w:
         return dequantize_int8(w, dtype)
     return w.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Misc
+# ---------------------------------------------------------------------------
+
+def count_params(params) -> int:
+    """Elements of every tensor leaf of a nested dict (an int8 leaf's
+    ``q`` and ``scale`` both count, as in JAX), or of a module's
+    parameters and buffers."""
+    if isinstance(params, dict):
+        return sum(count_params(v) for v in params.values())
+    if isinstance(params, torch.nn.Module):
+        return sum(t.numel() for t in params.parameters()) + sum(
+            t.numel() for t in params.buffers())
+    return params.numel() if isinstance(params, torch.Tensor) else 0
+
+
+def cross_entropy_loss(logits: torch.Tensor,
+                       labels: torch.Tensor) -> torch.Tensor:
+    """Mean token cross entropy.  logits: (..., V); labels: int (...)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.mean(logz - gold)

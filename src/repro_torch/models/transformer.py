@@ -11,7 +11,9 @@ Serving subset: ``forward`` (full sequence, optional KV collection),
 ``prefill``, ``encode``, the dense-cache entry points ``make_cache``,
 ``decode_step``, ``chunk_extend`` and ``greedy_generate``, the paged ones
 ``make_paged_cache``, ``paged_decode_step`` and ``paged_chunk_extend``,
-and ``quantize_for_serving`` (int8 weights).
+and ``quantize_for_serving`` (int8 weights).  Training: ``loss_fn`` and
+``forward(..., remat=True)`` over a plain nested dict of parameters that
+require grad (``repro_torch.training.train_loop.init_state``).
 JAX returns a new cache from the decode and extend entry points; the port
 writes into the cache IN PLACE and returns the same dict, so a step costs
 no copy of the cache.
@@ -35,6 +37,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.kernels.paged_attention.ref import engine_ref_attn
@@ -120,7 +123,8 @@ class TransformerParams(nn.Module):
     ``params["layers"][name]`` (stacked on axis 0) read like the JAX
     pytree; an int8 leaf is a ``{"q", "scale"}`` dict.  Buffers (not
     ``nn.Parameter``) because serving never differentiates; ``.to(device)``
-    moves them all.
+    moves them all.  Training differentiates a nested dict of the same
+    leaves (``tree()``), made to require grad by ``init_state``.
     """
 
     def __init__(self, tree: dict):
@@ -160,6 +164,18 @@ def layer_params(layers: dict, i: int) -> dict:
     """Layer ``i``'s weights from the stacked layer dict (int8 leaves too)."""
     return {k: ({kk: vv[i] for kk, vv in v.items()} if isinstance(v, dict)
                 else v[i]) for k, v in layers.items()}
+
+
+def unstack_layers(layers: dict, n_layers: int) -> list[dict]:
+    """Every layer's weights (``layer_params`` of each i) as views made by
+    one ``torch.unbind`` a stacked leaf.  Under autograd a stack's
+    gradient is then one stack of its layers' gradients; indexing the
+    stack layer by layer would give each layer's gradient as a zero-filled
+    tensor the size of the whole stack, summed L times."""
+    cols = {k: ({kk: torch.unbind(vv) for kk, vv in v.items()}
+                if isinstance(v, dict) else torch.unbind(v))
+            for k, v in layers.items()}
+    return [layer_params(cols, i) for i in range(n_layers)]
 
 
 def _trunc_normal(shape, generator: torch.Generator, device) -> torch.Tensor:
@@ -417,30 +433,39 @@ def _head(params, x, compute_dtype):
 def forward(params: TransformerParams, tokens: torch.Tensor,
             cfg: TransformerConfig, compute_dtype=torch.bfloat16,
             collect_cache: bool = False, return_hidden: bool = False,
-            attn_impl=None):
+            attn_impl=None, remat: bool = False):
     """Full-sequence forward.  tokens: (B, S) int.
 
     Returns (logits, aux_loss), or (logits, aux_loss, cache) with
     ``collect_cache`` -- cache {"k","v"}: (L, B, S, H_kv, D) -- or the
     final normed hidden states with ``return_hidden``.  ``attn_impl`` is
-    the full-sequence attention op (module docstring)."""
+    the full-sequence attention op (module docstring).  ``remat``
+    checkpoints each layer (training): its activations are recomputed in
+    the backward pass, as ``jax.checkpoint`` of the layer does in JAX.
+    ``params`` may be a plain nested dict (the train state's)."""
     B, S = tokens.shape
     embed = cm.maybe_dequant(params["embed"], compute_dtype)
     x = embed[tokens]
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
-    layers = params["layers"]
     ks, vs = [], []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_layers):
-        lp = layer_params(layers, i)
+
+    def layer_fn(x, aux, lp):
         h, k, v = _attn_full_seq(cm.rms_norm(x, lp["ln1"], cfg.norm_eps),
                                  lp, cfg, positions, compute_dtype, attn_impl)
         x = x + h
         h, a = _ffn(cm.rms_norm(x, lp["ln2"], cfg.norm_eps), lp, cfg,
                     compute_dtype)
         x = x + h
-        if a is not None:
-            aux = aux + a
+        return x, (aux if a is None else aux + a), k, v
+
+    for lp in unstack_layers(params["layers"], cfg.n_layers):
+        if remat:
+            x, aux, k, v = checkpoint(layer_fn, x, aux, lp,
+                                      use_reentrant=False,
+                                      preserve_rng_state=False)
+        else:
+            x, aux, k, v = layer_fn(x, aux, lp)
         if collect_cache:
             ks.append(k)
             vs.append(v)
@@ -466,6 +491,22 @@ def prefill(params: TransformerParams, tokens: torch.Tensor,
         cache = {k: F.pad(v, (0, 0, 0, 0, 0, cache_len - S))
                  for k, v in cache.items()}
     return logits[:, -1], cache
+
+
+def loss_fn(params, tokens: torch.Tensor, labels: torch.Tensor,
+            cfg: TransformerConfig, aux_weight: float = 0.01,
+            compute_dtype=torch.bfloat16, remat: bool = False) -> torch.Tensor:
+    """Mean next-token cross entropy plus ``aux_weight`` times the MoE
+    aux loss.  The padded vocabulary's logits are masked to -1e30 in
+    float32.  Attention is the plain path, as in JAX: the flash kernel
+    has no backward.  JAX's ``sp_spec`` (a sequence-sharding hint) waits
+    for the port's distributed layer."""
+    logits, aux = forward(params, tokens, cfg, compute_dtype, remat=remat)
+    if cfg.padded_vocab != cfg.vocab_size:
+        pad_mask = torch.arange(cfg.padded_vocab,
+                                device=logits.device) >= cfg.vocab_size
+        logits = torch.where(pad_mask, -1e30, logits.float())
+    return cm.cross_entropy_loss(logits, labels) + aux_weight * aux
 
 
 def encode(params: TransformerParams, tokens: torch.Tensor,

@@ -18,6 +18,10 @@ the CUDA kernel against the plain version.
   order (``2e-5``).
 * A ``"cuda"`` engine hands the flash op to prefill, the encoder and
   every executor, and the dense decode op to greedy generation.
+* Training differentiates ``forward`` through the plain attention: its
+  gradients match ``jax.grad`` of JAX's ``forward`` (float32, ``1e-5`` of
+  each leaf's largest gradient).  The CUDA kernel has no backward, so its
+  wrapper refuses inputs that require grad while grad mode is on.
 
 Tests marked ``cuda`` need a card and skip without one; run them on a GPU
 with ``python -m pytest -m cuda tests/test_torch_flash.py``.
@@ -122,6 +126,17 @@ def test_cpu_tensors_never_launch():
         fa.flash_attention_cuda(q, k, v)
 
 
+def test_kernel_wrapper_refuses_inputs_that_require_grad():
+    """The kernel has no backward: under grad mode the launcher refuses a
+    q, k or v that requires grad before anything else, and never hands it
+    to the plain version instead."""
+    q, k, v = map(torch.tensor, _qkv(1, 9, 4, 2, 16))
+    with pytest.raises(RuntimeError, match="no backward"):
+        fa.flash_attention_cuda(q, k.requires_grad_(), v)
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention_cuda(q, k, v)
+
+
 # ---------------------------------------------------------------------------
 # The model's full-sequence path through the flash op vs JAX
 # ---------------------------------------------------------------------------
@@ -156,6 +171,35 @@ def test_forward_through_flash_matches_jax(threshold):
         np.testing.assert_allclose(tcache[key].numpy(),
                                    np.asarray(jcache[key]), rtol=0,
                                    atol=TOL["f32"])
+
+
+@pytest.mark.parametrize("impl", ["plain", "flash_ref"])
+def test_forward_gradient_on_the_plain_path_matches_jax(impl):
+    """d(sum(logits * w))/d(params) of ``forward`` on the plain attention
+    (``attn_impl=None``, and the flash op's plain version, which a CPU
+    tensor takes) against ``jax.grad`` of JAX's ``forward``."""
+    from repro_torch.training.pytree import leaves
+    from repro_torch.training.train_loop import init_state, value_and_grad
+    jcfg, jp, tcfg, tp = _models(True)
+    rng = np.random.default_rng(4)
+    tokens = rng.integers(0, 64, (2, 24)).astype(np.int32)
+    w = rng.standard_normal((2, 24, jcfg.padded_vocab)).astype(np.float32)
+
+    def jloss(p):
+        return jnp.sum(jtr.forward(p, jnp.asarray(tokens), jcfg,
+                                   jnp.float32)[0] * w)
+
+    def tloss(p):
+        attn = None if impl == "plain" else fa.flash_attention
+        return torch.sum(tr.forward(p, torch.tensor(tokens), tcfg,
+                                    torch.float32, attn_impl=attn)[0]
+                         * torch.tensor(w))
+    want = jax.grad(jloss)(jp)
+    _, got = value_and_grad(tloss)(init_state(tp)["params"])
+    for a, b in zip(jax.tree_util.tree_leaves(want), leaves(got)):
+        a = np.asarray(a)
+        np.testing.assert_allclose(b.numpy(), a, rtol=0,
+                                   atol=1e-5 * float(np.abs(a).max()))
 
 
 def test_encode_through_flash_matches_jax():
@@ -268,3 +312,31 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="aligned"):
         flat = torch.zeros(k.numel() + 1, device=cuda)
         fa.flash_attention_cuda(q, flat[1:].view(k.shape), v)
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_autograd(cuda):
+    """No silent constant: under grad mode, q, k or v requiring grad
+    raises (and so does a ``forward`` over parameters that require grad);
+    under ``torch.no_grad()``, or on inputs that need no grad, the kernel
+    runs."""
+    q, k, v = (torch.tensor(x, device=cuda) for x in _qkv(1, 40, 4, 2, 16))
+    want = flash_attention_ref(q, k, v)
+    for i in range(3):
+        args = [q, k, v]
+        args[i] = args[i].clone().requires_grad_()
+        with pytest.raises(RuntimeError, match="no backward"):
+            fa.flash_attention(*args)
+        with torch.no_grad():
+            got = fa.flash_attention(*args)
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    torch.testing.assert_close(fa.flash_attention(q, k, v), want, rtol=0,
+                               atol=1e-5)
+    from repro_torch.training.train_loop import init_state
+    _, _, tcfg, tp = _models(True)
+    params = init_state(tp.to(cuda))["params"]
+    tokens = torch.zeros((1, 12), dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        tr.forward(params, tokens, tcfg, torch.float32,
+                   attn_impl=fa.flash_attention)
+    tr.forward(params, tokens, tcfg, torch.float32)     # the plain path
