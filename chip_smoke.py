@@ -6,8 +6,9 @@ over the disaggregated ``RAGCluster``, with IBM Granite-3.0-2B at full
 width (random weights from a seed), an encoder of ENCODER_120M's widths
 with Granite's vocabulary, and IVF-PQ retrieval; then Minitron-8B and
 ChatGLM3-6B in bf16 and int8 and the mixture-of-experts Moonlight-16B-A3B,
-each at full width; and the LM trainer, Granite-3.0-2B trained at full
-width -- and holds every CUDA kernel of those paths against
+each at full width; the LM trainer, Granite-3.0-2B trained at full
+width; and the recsys and GNN families, DLRM-RM2 trained and scored at
+full width -- and holds every CUDA kernel of those paths against
 its plain PyTorch version.  Full-sequence
 attention (prefill, the encoder, greedy generation's prompt pass) runs the
 flash attention kernel on every path.  The paged path decodes through the
@@ -99,6 +100,24 @@ lines (and its seconds as a ``phase_seconds`` line), in order:
                full-width gradients (the int8 bound per leaf, its time);
                a checkpoint restart on the reduced config under ``build/``
                (resumed at step 7, history equal to an uninterrupted run)
+  recsys_gnn   on the emptied card, float32 with TF32 off (no serving
+               kernel runs; launches are checked to stay 0), weights
+               drawn on the card from a generator: DLRM-RM2 (1.66 B
+               parameters), two-tower, xDeepFM and MIND at their
+               published widths, each held against the CPU at batch 512
+               (loss, the serving output, every gradient leaf, the table
+               rows the batch reads; every other row's gradient exactly
+               0), a 1,000,000-candidate top-100 (DLRM's against the CPU,
+               differences only at near-ties), serve_p99 and serve_bulk
+               forwards, and 5 AdamW steps at the train batch (65,536 for
+               DLRM; each cut printed on a ``reduced`` line with its
+               reason): forward+backward and AdamW on CUDA events, rows/s,
+               the loss before and after one step, peak memory; then PNA
+               at full_graph_sm (against the CPU), molecule and
+               minibatch_lg (one 1,024-target subgraph sampled by
+               ``graph_neighbor_sampler`` from a synthetic graph of
+               Reddit's size, the sampler's host time printed), each
+               trained 5 steps; ogb_products is listed as not run
   serve_moe    last, on the emptied card: Moonlight-16B-A3B in the
                reference's config at full width (48 layers, 64 experts
                top-6, 56.1 GB of bf16 weights), an encoder of
@@ -2593,6 +2612,650 @@ def phase_train(profile: bool = False) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# recsys_gnn: the recsys and GNN families at the published widths
+# ---------------------------------------------------------------------------
+
+RECSYS_ARCHS = ("dlrm-rm2", "two-tower-retrieval", "xdeepfm", "mind")
+_BB_LOGITS = ("the in-batch softmax's (B, B) float32 logits are 17.2 GB at "
+              "the reference's 65,536, and autograd keeps several")
+#: each model's train batch on one 80 GB card, and the reason for a cut
+#: below the reference's ``train_batch`` shape (65,536)
+RECSYS_TRAIN = {
+    "dlrm-rm2": (65536, None),
+    "two-tower-retrieval": (32768, _BB_LOGITS),
+    "xdeepfm": (16384, "the CIN's (B, 200, 39, 10) float32 intermediate is "
+                       "20.4 GB a layer at the reference's 65,536"),
+    "mind": (32768, _BB_LOGITS),
+}
+#: rows of one xDeepFM forward at serve_bulk and score: each row is scored
+#: on its own, so the chunks give the reference's numbers
+XDEEPFM_CHUNK = 16384
+RECSYS_CHECK_BATCH = 512
+RECSYS_STEPS = 5               # one step, then 4 more on the same batch
+TOP_K = 100
+N_CANDIDATES = 1_000_000
+#: card vs CPU, float32 on both with TF32 off: each tensor within this
+#: share of its largest magnitude, the loss to LOSS_RTOL; PNA's float32
+#: forward to PNA_PARITY_TOL (the std aggregator's cancellation and the
+#: attenuation scaler's 1 / 1e-5 amplify rounding) and its gradients in
+#: float64 to PNA_GRAD64_TOL (see ``pna_parity``; the same amplification
+#: of float64's rounding measured 1.5e-14 to 6.1e-10 on an H100)
+RECSYS_PARITY_TOL = 1e-4
+PNA_PARITY_TOL = 1e-3
+LOSS_RTOL = 1e-5
+PNA_GRAD64_TOL = 1e-7
+#: the PNA shapes run on the card (ogb_products needs the partitioned PNA)
+PNA_SHAPES = ("full_graph_sm", "molecule", "minibatch_lg")
+
+
+def _pad512(n: int) -> int:
+    return -(-n // 512) * 512
+
+
+def _to(batch: dict, device) -> dict:
+    import torch
+    return {k: (torch.as_tensor(v).to(device) if isinstance(
+        v, (np.ndarray, torch.Tensor)) else v) for k, v in batch.items()}
+
+
+def recsys_ops(arch_id: str) -> dict:
+    """The reference's step programs for ``arch_id`` (``launch/steps.py``'s
+    ``_RECSYS``): init, loss, the serving forward, and the score's top-100
+    (``score`` returns ``(scores or None, values, ids)``)."""
+    from repro_torch.models import recsys as rec
+    from repro_torch.retrieval.exact import top_k
+
+    def chunked(fn, rows):
+        import torch
+        n = rows.shape[0]
+        return torch.cat([fn(rows[i:i + XDEEPFM_CHUNK])
+                          for i in range(0, n, XDEEPFM_CHUNK)])
+
+    if arch_id == "dlrm-rm2":
+        def score(p, b, c):
+            s = rec.dlrm_score_candidates(p, b["dense"], b["sparse"],
+                                          b["candidates"], c)
+            return (s,) + tuple(top_k(s, TOP_K))
+        return {"init": rec.dlrm_init, "loss": rec.dlrm_loss,
+                "fwd": lambda p, b, c: rec.dlrm_forward(
+                    p, b["dense"], b["sparse"], c), "score": score}
+    if arch_id == "two-tower-retrieval":
+        return {"init": rec.two_tower_init, "loss": rec.two_tower_loss,
+                "fwd": lambda p, b, c: rec.user_tower(
+                    p, b["user_ids"], b["hist_ids"], c),
+                "score": lambda p, b, c: (None,) + tuple(
+                    rec.two_tower_score_candidates(
+                        p, b["user_ids"], b["hist_ids"], b["candidates"], c,
+                        TOP_K))}
+    if arch_id == "xdeepfm":
+        def score(p, b, c):
+            # xdeepfm_score_candidates a chunk of candidates at a time
+            s = chunked(lambda cand: rec.xdeepfm_score_candidates(
+                p, b["sparse"], cand, c), b["candidates"])
+            return (s,) + tuple(top_k(s, TOP_K))
+        return {"init": rec.xdeepfm_init, "loss": rec.xdeepfm_loss,
+                "fwd": lambda p, b, c: chunked(
+                    lambda r: rec.xdeepfm_forward(p, r, c), b["sparse"]),
+                "score": score}
+    return {"init": rec.mind_init, "loss": rec.mind_loss,
+            "fwd": lambda p, b, c: rec.mind_interests(p, b["hist_ids"], c),
+            "score": lambda p, b, c: (None,) + tuple(
+                rec.mind_score_candidates(p, b["hist_ids"], b["candidates"],
+                                          c, TOP_K))}
+
+
+def recsys_inputs(arch_id: str, cfg, b: int, seed: int) -> dict:
+    """A batch of numpy arrays: ``recsys_batches`` for DLRM and xDeepFM
+    (with labels), uniform ids for two-tower (with a log-Q correction) and
+    MIND."""
+    from repro_torch.data.synthetic import recsys_batches
+    rng = np.random.default_rng(seed)
+    if arch_id in ("dlrm-rm2", "xdeepfm"):
+        return next(recsys_batches(cfg.n_sparse, cfg.vocab_per_field, b, 1,
+                                   n_dense=getattr(cfg, "n_dense", 0),
+                                   seed=seed))
+    hist = rng.integers(0, cfg.n_items, (b, cfg.hist_len)).astype(np.int32)
+    items = rng.integers(0, cfg.n_items, b).astype(np.int32)
+    if arch_id == "mind":
+        return {"hist_ids": hist, "item_ids": items}
+    return {"user_ids": rng.integers(0, cfg.n_users, b).astype(np.int32),
+            "hist_ids": hist, "item_ids": items,
+            "log_q": np.log(rng.random(b) * 1e-3 + 1e-6).astype(np.float32)}
+
+
+def touched_rows(arch_id: str, cfg, batch: dict) -> dict:
+    """Per table leaf, the rows a batch reads (global ids into the stacked
+    table)."""
+    if arch_id in ("dlrm-rm2", "xdeepfm"):
+        rows = (batch["sparse"].astype(np.int64)
+                + cfg.tables().offsets[:-1][None, :]).reshape(-1)
+        return ({"tables": rows} if arch_id == "dlrm-rm2"
+                else {"tables": rows, "linear": rows})
+    items = np.concatenate([batch["hist_ids"].reshape(-1),
+                            batch["item_ids"]]).astype(np.int64)
+    if arch_id == "mind":
+        return {"item_table": items}
+    return {"item_table": items,
+            "user_table": batch["user_ids"].astype(np.int64)}
+
+
+def cuda_ms(fn, reps: int = 3) -> list[float]:
+    """``fn()``'s time on CUDA events, ``reps`` times after a warm-up."""
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        fn()
+        ev[1].record()
+        ev[1].synchronize()
+        times.append(ev[0].elapsed_time(ev[1]))
+    return times
+
+
+def scaled_err(got, want) -> float:
+    """max |got - want| over max |want| (``want`` on the CPU)."""
+    got = got.detach().cpu().float()
+    want = want.detach().float()
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                 1e-30)
+
+
+def relu_recorder():
+    """A ``TorchFunctionMode`` whose ``seen`` keeps a host copy of the input
+    of every ``torch.relu`` call made under it, in call order."""
+    import torch
+    from torch.overrides import TorchFunctionMode
+
+    class Record(TorchFunctionMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func is torch.relu:
+                self.seen.append(args[0].detach().cpu())
+            return func(*args, **(kwargs or {}))
+    return Record()
+
+
+def kink_rows(card: list, cpu: list, n_rows: int,
+              tol: float) -> tuple[np.ndarray, float]:
+    """Rows of a batch at which an MLP's ReLU gate differs between the
+    card's forward and the CPU's (``relu_recorder`` of each), and the
+    largest such pre-activation over its layer's largest.  A gate flips
+    only at a pre-activation within rounding of 0 -- the card's embedding
+    bags sum with atomics, so its rounding changes from run to run -- and
+    there the gradient jumps, so such a row's gradients cannot agree.  A
+    flip farther from 0 than ``tol`` of the layer raises."""
+    rows = np.zeros(n_rows, bool)
+    worst = 0.0
+    for zc, zh in zip(card, cpu):
+        if zh.dim() < 2 or zh.shape[0] != n_rows:
+            continue
+        flip = (zc > 0) != (zh > 0)
+        if not flip.any():
+            continue
+        margin = max(float(zc.abs()[flip].max()),
+                     float(zh.abs()[flip].max())) / float(zh.abs().max())
+        worst = max(worst, margin)
+        if margin > tol:
+            raise AssertionError("a ReLU gate differs between the card and "
+                                 "the CPU away from 0")
+        rows |= flip.reshape(n_rows, -1).any(dim=1).numpy()
+    return rows, worst
+
+
+def grad_parity(params_card, host, loss_fn, fwd_fn, batch: dict,
+                tables: dict) -> dict:
+    """The loss, ``fwd_fn``'s output and every gradient leaf of one batch on
+    the card against the CPU from the same weights (``host``, a copy).
+    A leaf in ``tables`` (name -> rows the batch reads) is compared at
+    those rows, and every other row of its card gradient must be exactly
+    0; every other leaf whole.  ``relu_inputs`` holds each side's ReLU
+    inputs of the differentiated forward (``relu_recorder``)."""
+    import torch
+    from repro_torch.training.pytree import leaves, tree_map
+    from repro_torch.training.train_loop import value_and_grad
+
+    res = {}
+    for side, params, dev in (("card", params_card, DEVICE),
+                              ("cpu", host, "cpu")):
+        p = tree_map(lambda t: t.detach().requires_grad_(), params)
+        b = _to(batch, dev)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = fwd_fn(p, b)
+        record = relu_recorder()
+        with record:
+            loss, grads = value_and_grad(loss_fn)(p, b)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        res[side] = (out, loss, grads, time.perf_counter() - t0, record.seen)
+    out_c, loss_c, g_c, t_card, z_c = res["card"]
+    out_h, loss_h, g_h, t_cpu, z_h = res["cpu"]
+    worst, untouched = {}, {}
+    for key in sorted(g_c):
+        if key in tables:
+            rows = torch.from_numpy(np.unique(tables[key]))
+            worst[key] = scaled_err(g_c[key][rows.to(DEVICE)], g_h[key][rows])
+            keep = torch.ones(g_c[key].shape[0], dtype=torch.bool,
+                              device=DEVICE)
+            keep[rows.to(DEVICE)] = False
+            untouched[key] = float((g_c[key].abs().amax(dim=1)
+                                    * keep).max())
+        else:
+            worst[key] = max(scaled_err(a, b) for a, b in zip(
+                leaves(g_c[key]), leaves(g_h[key])))
+    return {"loss": [float(loss_c), float(loss_h)],
+            "output_err": scaled_err(out_c, out_h),
+            "grad_err": worst, "untouched_rows_max_abs_grad": untouched,
+            "touched_rows": {k: int(np.unique(v).size)
+                             for k, v in tables.items()},
+            "seconds": {"card": t_card, "cpu": t_cpu},
+            "relu_inputs": (z_c, z_h)}
+
+
+def check_parity(name: str, res: dict, tol: float) -> None:
+    loss_c, loss_h = res["loss"]
+    if abs(loss_c - loss_h) > LOSS_RTOL * abs(loss_h):
+        raise AssertionError(f"{name}: the card's loss differs from the CPU's")
+    if not res["output_err"] <= tol:
+        raise AssertionError(f"{name}: the card's output differs from the "
+                             f"CPU's")
+    bad = {k: v for k, v in res["grad_err"].items() if not v <= tol}
+    if bad:
+        raise AssertionError(f"{name}: gradients differ from the CPU's: {bad}")
+    if any(res["untouched_rows_max_abs_grad"].values()):
+        raise AssertionError(f"{name}: a row no id reads has a gradient")
+
+
+def check_score_parity(score_card, params_host, user: dict, cand, cfg,
+                       ops) -> dict:
+    """The 1,000,000-candidate scores and their top-100 on the CPU from the
+    same weights against the card's: every score within the parity
+    tolerance, and a top-100 id that differs only where the two ids'
+    CPU scores are within twice the largest score difference (a near
+    tie)."""
+    import torch
+    s_card, _, i_card = score_card
+    b = _to(dict(user, candidates=cand), "cpu")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        s_cpu, _, i_cpu = ops["score"](params_host, b, cfg)
+    t_cpu = time.perf_counter() - t0
+    s_card, i_card = s_card.cpu(), i_card.cpu()
+    diff = float((s_card - s_cpu).abs().max())
+    scale = float(s_cpu.abs().max())
+    moved = (i_card != i_cpu).nonzero().flatten().tolist()
+    gaps = [float((s_cpu[i_card[j]] - s_cpu[i_cpu[j]]).abs()) for j in moved]
+    out = {"score_max_abs_diff": diff, "score_scale": scale,
+           "top100_positions_differing": moved, "their_cpu_gaps": gaps,
+           "near_tie_margin": 2 * diff, "cpu_score_s": t_cpu}
+    if diff > RECSYS_PARITY_TOL * scale:
+        raise AssertionError("score: the card's scores differ from the "
+                             "CPU's")
+    if any(g > 2 * diff for g in gaps):
+        raise AssertionError("score: a top-100 id differs from the CPU's "
+                             "away from a near tie")
+    return out
+
+
+def train_steps(loss_fn, params, batch: dict, n_rows: int) -> dict:
+    """``RECSYS_STEPS`` AdamW steps on one batch at ``AdamWConfig()``, the
+    optimizer of the reference's recsys and GNN step programs
+    (``launch/steps.py``): forward+backward and AdamW on CUDA events, the
+    loss on the batch after the first step, the wall time of each step;
+    rows/s from the median of steps 2..5."""
+    import math
+    import torch
+    from repro_torch.training.optim import AdamWConfig, adamw_update
+    from repro_torch.training.pytree import leaves
+    from repro_torch.training.train_loop import init_state, value_and_grad
+
+    state = init_state(params)
+    opt = AdamWConfig()
+    grad_fn = value_and_grad(loss_fn)
+    fb, adam, wall, losses = [], [], [], []
+    after = None
+    for i in range(RECSYS_STEPS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        loss, grads = grad_fn(state["params"], batch)
+        ev[1].record()
+        adamw_update(grads, state["opt"], state["params"], opt)
+        ev[2].record()
+        ev[2].synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        fb.append(ev[0].elapsed_time(ev[1]))
+        adam.append(ev[1].elapsed_time(ev[2]))
+        losses.append(float(loss))
+        del grads
+        if i == 0:
+            with torch.no_grad():
+                after = float(loss_fn(state["params"], batch))
+    n_params = sum(t.numel() for t in leaves(state["params"]))
+    med = lambda xs: float(np.median(xs[1:]))  # noqa: E731
+    out = {"losses": losses, "loss_before": losses[0],
+           "loss_after_one_step": after, "fwd_bwd_ms": fb, "adamw_ms": adam,
+           "step_wall_ms": wall, "median_fwd_bwd_ms": med(fb),
+           "median_adamw_ms": med(adam), "median_step_ms": med(wall),
+           "rows_per_s": n_rows / med(wall) * 1e3,
+           "adamw_bound_ms": 28 * n_params / HBM_BYTES_PER_S * 1e3}
+    if not all(math.isfinite(x) for x in losses + [after]):
+        raise AssertionError("train: a loss is not finite")
+    if not after < losses[0]:
+        raise AssertionError(f"train: one step did not lower the loss on "
+                             f"its batch: {losses[0]} -> {after}")
+    return out
+
+
+def emit_reduced(what: str, reason: str) -> None:
+    emit({"phase": "recsys_gnn", "reduced": what, "reason": reason})
+
+
+def check_recsys(arch_id: str, card: str) -> dict:
+    """One recsys model at its published widths on the card: weights drawn
+    there from a generator; card vs CPU at batch 512 (loss, the serving
+    output, every gradient, touched table rows, untouched rows 0); the
+    1,000,000-candidate top-100 (held against the CPU for DLRM-RM2);
+    serve_p99 and serve_bulk forwards; RECSYS_STEPS AdamW steps at the
+    train batch."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models.common import count_params
+    from repro_torch.training.pytree import leaves, tree_map
+
+    arch = get_arch(arch_id)
+    cfg = arch.config
+    ops = recsys_ops(arch_id)
+    release_device_memory()
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    params = ops["init"](gen, cfg, device=DEVICE)
+    n_params = count_params(params)
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+
+    def loss_fn(p, b):
+        return ops["loss"](p, b, cfg)
+
+    check = recsys_inputs(arch_id, cfg, RECSYS_CHECK_BATCH, seed=1)
+    host = tree_map(lambda t: t.detach().to("cpu", copy=True), params)
+    rows = np.arange(RECSYS_CHECK_BATCH)
+    for _ in range(3):
+        parity = grad_parity(params, host, loss_fn,
+                             lambda p, b: ops["fwd"](p, b, cfg), check,
+                             touched_rows(arch_id, cfg, check))
+        kinks, margin = kink_rows(*parity.pop("relu_inputs"), rows.size,
+                                  RECSYS_PARITY_TOL)
+        if not kinks.any():
+            break
+        # drop the rows at a kink and compare again
+        emit({"phase": "recsys_gnn", "model": arch_id,
+              "kink_rows": rows[kinks].tolist(), "kink_margin": margin})
+        rows = rows[~kinks]
+        check = {k: v[~kinks] for k, v in check.items()}
+    else:
+        raise AssertionError(f"{arch_id}: ReLU gates flip in every try")
+    parity["rows_compared"] = int(rows.size)
+    check_parity(arch_id, parity, RECSYS_PARITY_TOL)
+
+    vocab = getattr(cfg, "vocab_per_field", getattr(cfg, "n_items", 0))
+    cand = np.random.default_rng(4).permutation(vocab)[:N_CANDIDATES].astype(
+        np.int32)
+    user = recsys_inputs(arch_id, cfg, 1, seed=5)
+    score_in = _to(dict(user, candidates=cand), DEVICE)
+    with torch.no_grad():
+        score = ops["score"](params, score_in, cfg)
+        score_ms = cuda_ms(lambda: ops["score"](params, score_in, cfg))
+    out = {"phase": "recsys_gnn", "model": arch_id, "card": card,
+           "params": n_params, "param_bytes": n_bytes,
+           "parity_batch": RECSYS_CHECK_BATCH, "parity": parity,
+           "parity_tol": {"of_largest_magnitude": RECSYS_PARITY_TOL,
+                          "loss_rtol": LOSS_RTOL},
+           "score": {"candidates": N_CANDIDATES, "top_k": TOP_K,
+                     "ms": score_ms, "top_ids": score[2].tolist(),
+                     "top_values": score[1].tolist()}}
+    if arch_id == "dlrm-rm2":
+        out["score"]["cpu_parity"] = check_score_parity(
+            score, host, user, cand, cfg, ops)
+    del host, score
+    serve = {}
+    for shape in ("serve_p99", "serve_bulk"):
+        n = arch.shape(shape).dims["batch"]
+        b = _to(recsys_inputs(arch_id, cfg, n, seed=6), DEVICE)
+        with torch.no_grad():
+            ms = cuda_ms(lambda: ops["fwd"](params, b, cfg))
+        serve[shape] = {"batch": n, "ms": ms,
+                        "rows_per_s": n / float(np.median(ms)) * 1e3}
+        del b
+    out["serve"] = serve
+    b_train, cut = RECSYS_TRAIN[arch_id]
+    if cut:
+        emit_reduced(f"{arch_id}:train_batch 65536 -> {b_train}", cut)
+    torch.cuda.synchronize()
+    train_batch = _to(recsys_inputs(arch_id, cfg, b_train, seed=2), DEVICE)
+    out["train"] = dict(batch=b_train, **train_steps(
+        loss_fn, params, train_batch, b_train))
+    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    emit(out)
+    return out
+
+
+def synthetic_graph(n_nodes: int, n_edges: int, seed: int) -> np.ndarray:
+    """(2, n_edges) int32 edges (src, dst) over ``n_nodes``: in-degrees
+    multinomial over the nodes, sources uniform; stored dst-major (CSR
+    order), as a graph store keeps it."""
+    rng = np.random.default_rng(seed)
+    deg = rng.multinomial(n_edges, np.full(n_nodes, 1.0 / n_nodes))
+    dst = np.repeat(np.arange(n_nodes, dtype=np.int32), deg)
+    src = rng.integers(0, n_nodes, n_edges, dtype=np.int32)
+    return np.stack([src, dst])
+
+
+def pna_batch(shape, cfg, gen) -> tuple[dict, dict]:
+    """The padded batch of a PNA shape on the card (the reference's
+    ``gnn_batch_abstract`` layout: node and edge arrays padded to a
+    multiple of 512, padded edges masked and pointing at the last node,
+    pad nodes with zero features and ``label_mask`` 0 -- molecule: pad
+    nodes in graph ``n_graphs``), and what was measured making it."""
+    import torch
+    d = shape.dims
+    rng = np.random.default_rng(7)
+    info = {}
+    if shape.name == "molecule":
+        g, nn, ne = d["batch"], d["n_nodes"], d["n_edges"]
+        base = np.repeat(np.arange(g) * nn, ne)
+        edges = np.stack([base + rng.integers(0, nn, g * ne),
+                          base + rng.integers(0, nn, g * ne)])
+        n_real, n_pad = g * nn, _pad512(g * nn)
+        gids = np.full(n_pad, g, np.int32)
+        gids[:n_real] = np.repeat(np.arange(g), nn)
+        extra = {"graph_ids": gids,
+                 "y": rng.normal(size=g).astype(np.float32), "n_graphs": g}
+        e_pad = _pad512(g * ne)
+    elif shape.name == "minibatch_lg":
+        from repro_torch.data.synthetic import graph_neighbor_sampler
+        t0 = time.perf_counter()
+        graph = synthetic_graph(d["n_nodes"], d["n_edges"], seed=8)
+        info["graph_s"] = time.perf_counter() - t0
+        sampler = graph_neighbor_sampler(graph, d["n_nodes"], d["fanout"],
+                                         d["batch_nodes"], seed=9)
+        t0 = time.perf_counter()
+        sub = next(sampler)
+        info["csr_build_and_first_sample_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        next(sampler)
+        info["sample_s"] = time.perf_counter() - t0
+        del graph, sampler
+        b, (f1, f2) = d["batch_nodes"], d["fanout"]
+        n_real, n_pad = sub["nodes"].size, _pad512(b * (1 + f1 + f1 * f2))
+        edges = sub["edges"].astype(np.int64)
+        e_pad = _pad512(b * f1 + b * f1 * f2)
+        label_mask = np.zeros(n_pad, np.float32)
+        label_mask[sub["targets"]] = 1.0
+        extra = {"label_mask": label_mask}
+        info.update(subgraph_nodes=int(n_real),
+                    subgraph_edges=int(edges.shape[1]))
+    else:
+        n_real, n_pad = d["n_nodes"], _pad512(d["n_nodes"])
+        edges = rng.integers(0, n_real, (2, d["n_edges"]))
+        e_pad = _pad512(d["n_edges"])
+        label_mask = np.zeros(n_pad, np.float32)
+        label_mask[:n_real] = 1.0
+        extra = {"label_mask": label_mask}
+    n_e = edges.shape[1]
+    if n_e < e_pad and n_real >= n_pad:
+        raise AssertionError(f"{shape.name}: no pad node for the padded "
+                             f"edges")
+    full = np.full((2, e_pad), n_pad - 1, np.int32)
+    full[:, :n_e] = edges
+    mask = np.zeros(e_pad, np.float32)
+    mask[:n_e] = 1.0
+    x = torch.randn((n_pad, cfg.d_feat), generator=gen, device=DEVICE)
+    x[n_real:] = 0.0
+    batch = {"x": x, "edges": full, "edge_mask": mask, **extra}
+    if not cfg.graph_level:
+        batch["labels"] = rng.integers(0, cfg.n_classes, n_pad).astype(
+            np.int32)
+    info.update(nodes=int(n_real), nodes_padded=int(n_pad), edges=int(n_e),
+                edges_padded=int(e_pad))
+    return _to(batch, DEVICE), info
+
+
+def pna_parity(params, loss_fn, fwd, batch: dict, gen) -> dict:
+    """PNA on the card against the CPU from the same weights and graph.
+    float32: the forward and the loss within PNA_PARITY_TOL and LOSS_RTOL;
+    the gradients are printed beside it with the ReLU gates that differ,
+    ungated.  The std aggregator's ``relu(sq / deg - mean**2)`` sits at
+    its kink wherever a node's messages nearly agree, and message
+    pre-activations come within rounding of 0, so one ulp of rounding
+    flips gates and moves single gradient entries by up to ~1e-3 of their
+    leaf (measured on the CPU).  So the gradients are held in float64,
+    where no gate flips: ``value_and_grad`` of a fixed random projection
+    of the forward's output (every op's backward, the f32 loss cast
+    aside), within PNA_GRAD64_TOL."""
+    import torch
+    from repro_torch.training.pytree import leaves, tree_map
+    from repro_torch.training.train_loop import value_and_grad
+
+    host = tree_map(lambda t: t.detach().to("cpu", copy=True), params)
+    b_cpu = {k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+             for k, v in batch.items()}
+    f32 = {}
+    for side, p, b in (("card", params, batch), ("cpu", host, b_cpu)):
+        pp = tree_map(lambda t: t.detach().requires_grad_(), p)
+        with torch.no_grad():
+            o = fwd(pp, b)
+        record = relu_recorder()
+        with record:
+            loss, grads = value_and_grad(loss_fn)(pp, b)
+        f32[side] = (o, float(loss), grads, record.seen)
+    (o_c, l_c, g_c, z_c), (o_h, l_h, g_h, z_h) = f32["card"], f32["cpu"]
+    res = {"float32": {
+        "loss": [l_c, l_h], "output_err": scaled_err(o_c, o_h),
+        "grad_err_ungated": {k: max(scaled_err(a, b) for a, b in zip(
+            leaves(g_c[k]), leaves(g_h[k]))) for k in sorted(g_c)},
+        "relu_gates_differing": [int(((a > 0) != (b > 0)).sum())
+                                 for a, b in zip(z_c, z_h)]},
+        "tol": {"float32_output_of_largest_magnitude": PNA_PARITY_TOL,
+                "loss_rtol": LOSS_RTOL,
+                "float64_grads_of_largest_magnitude": PNA_GRAD64_TOL}}
+    if abs(l_c - l_h) > LOSS_RTOL * abs(l_h):
+        raise AssertionError("pna: the card's loss differs from the CPU's")
+    if not res["float32"]["output_err"] <= PNA_PARITY_TOL:
+        raise AssertionError("pna: the card's output differs from the CPU's")
+    del f32, g_c, g_h
+    n_out = o_h.shape
+    cot = torch.randn(n_out, generator=gen, device=DEVICE,
+                      dtype=torch.float64)
+
+    def project(p, b):
+        return torch.sum(fwd(p, b) * cot.to(b["x"].device))
+
+    def f64(b):
+        return {k: (v.double() if isinstance(v, torch.Tensor)
+                    and v.is_floating_point() else v) for k, v in b.items()}
+    res["float64"] = grad_parity(
+        tree_map(lambda t: t.double(), params),
+        tree_map(lambda t: t.double(), host), project, fwd, f64(b_cpu), {})
+    z_c, z_h = res["float64"].pop("relu_inputs")
+    res["float64"]["relu_gates_differing"] = [
+        int(((a > 0) != (b > 0)).sum()) for a, b in zip(z_c, z_h)]
+    check_parity("pna (float64)", res["float64"], PNA_GRAD64_TOL)
+    return res
+
+
+def check_pna(shape_name: str, card: str) -> dict:
+    """PNA at one shape's config: weights drawn on the card; at
+    full_graph_sm the forward, loss and every gradient against the CPU;
+    the forward's time; RECSYS_STEPS AdamW steps on the batch."""
+    import torch
+    from repro_torch.configs import pna as pna_cfg
+    from repro_torch.models import gnn
+    from repro_torch.models.common import count_params
+    from repro_torch.training.pytree import leaves, tree_map
+
+    shape = pna_cfg.ARCH.shape(shape_name)
+    cfg = pna_cfg.config_for_shape(shape)
+    release_device_memory()
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    params = gnn.init_params(gen, cfg, device=DEVICE)
+    batch, info = pna_batch(shape, cfg, gen)
+
+    def loss_fn(p, b):
+        return gnn.loss_fn(p, b, cfg)
+
+    def fwd(p, b):
+        return gnn.forward(p, b["x"], b["edges"], cfg, b["edge_mask"],
+                           b.get("graph_ids"), b.get("n_graphs"))
+
+    out = {"phase": "recsys_gnn", "model": f"pna:{shape_name}",
+           "card": card, "params": count_params(params),
+           "param_bytes": sum(t.numel() * t.element_size()
+                              for t in leaves(params)),
+           "config": {"d_feat": cfg.d_feat, "n_classes": cfg.n_classes,
+                      "graph_level": cfg.graph_level}, "batch": info}
+    if shape_name == "full_graph_sm":
+        out["parity"] = pna_parity(params, loss_fn, fwd, batch, gen)
+    with torch.no_grad():
+        out["forward_ms"] = cuda_ms(lambda: fwd(params, batch))
+    out["train"] = train_steps(loss_fn, params, batch, info["nodes"])
+    out["train"]["nodes_per_s"] = out["train"].pop("rows_per_s")
+    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    emit(out)
+    return out
+
+
+def phase_recsys_gnn() -> dict:
+    """The recsys and GNN families on the emptied card, float32 with TF32
+    off: DLRM-RM2, two-tower, xDeepFM and MIND at their published widths,
+    then PNA at full_graph_sm, molecule and minibatch_lg; no serving
+    kernel runs on this path (launches are checked to stay 0)."""
+    import torch
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("recsys_gnn: TF32 matmuls are on")
+    card = nvidia_smi_line()
+    reset_launches()
+    out = {}
+    for arch_id in RECSYS_ARCHS:
+        out[arch_id] = check_recsys(arch_id, card)
+    emit_reduced("pna:ogb_products not run",
+                 "its (E, 150) float32 message input alone is 37 GB a "
+                 "layer (61.9 M edges); it needs the partitioned PNA over "
+                 "a mesh")
+    for shape_name in PNA_SHAPES:
+        out[f"pna:{shape_name}"] = check_pna(shape_name, card)
+    launches = read_launches()
+    emit({"phase": "recsys_gnn", "kernel_launches": launches})
+    if any(launches.values()):
+        raise AssertionError("recsys_gnn: the path launched a serving "
+                             "kernel")
+    return out
+
+
 #: the MoE phase: Moonlight-16B-A3B in the reference's config
 MOE_ARCH = "moonshot-v1-16b-a3b"
 
@@ -2887,6 +3550,8 @@ def main() -> int:
     del shared
     release_device_memory()
     timed("train", phase_train, profile)
+    release_device_memory()
+    timed("recsys_gnn", phase_recsys_gnn)
     release_device_memory()
     timed("serve_moe", phase_serve_moe)
 

@@ -18,6 +18,7 @@ from repro_torch import resolve_device
 from repro_torch.models.transformer import (MoEConfig, TransformerConfig,
                                             TransformerParams)
 from repro_torch.retrieval.ivf_pq import IVFPQIndex
+from repro_torch.training.pytree import tree_map
 
 
 def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
@@ -68,6 +69,15 @@ def params_from_jax(tree_of_numpy: dict, device="cuda",
     which rounds to the same numbers."""
     dev = resolve_device(device)
     return TransformerParams(_convert(tree_of_numpy, dev, dtype))
+
+
+def tree_from_jax(tree_of_numpy, device="cuda"):
+    """The same tree of nested dicts and lists (a recsys or GNN model's
+    parameters, a train state) with every numpy leaf an exact tensor copy
+    on ``device``, its dtype kept.  None of ``params_from_jax``'s
+    transformer rules apply: no leaf is cast, none read as int8."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: tensor_from_numpy(a, dev), tree_of_numpy)
 
 
 def config_from_jax(fields: dict) -> TransformerConfig:

@@ -1,12 +1,17 @@
-"""Arch/shape registry of the port's language models (copy of
-``repro.configs.base``; the port imports nothing of ``repro``).
+"""Arch/shape registry of the port (copy of ``repro.configs.base``; the
+port imports nothing of ``repro``).
 
-Each LM architecture of the reference lives in its own
-``repro_torch/configs/<id>.py`` exposing an ``ARCH`` (ArchSpec) built on
-the port's ``TransformerConfig``; ``get_arch(arch_id)`` resolves by id and
-``all_cells()`` enumerates (arch, shape).  The reference's GNN and recsys
-architectures have no model in the port yet: ``get_arch`` raises
-``NotImplementedError`` for them.
+Each architecture of the reference -- five LMs, PNA and four recsys
+models -- lives in its own ``repro_torch/configs/<id>.py`` exposing an
+``ARCH`` (ArchSpec) built on the port's model config;
+``get_arch(arch_id)`` resolves by id and ``all_cells()`` enumerates
+(arch, shape).
+
+Shapes carry a ``step`` kind: ``train`` -> train_step,
+``prefill``/``decode`` -> serving programs, ``forward`` -> inference
+forward, ``score`` -> candidate-scoring (recsys retrieval).  ``skip``
+marks cells excluded from the official baseline table (long_500k on pure
+full-attention LMs) with the reason recorded.
 """
 
 from __future__ import annotations
@@ -67,12 +72,11 @@ _REGISTRY: dict[str, str] = {
     "granite-3-2b": "repro_torch.configs.granite_3_2b",
     "chatglm3-6b": "repro_torch.configs.chatglm3_6b",
     "minitron-8b": "repro_torch.configs.minitron_8b",
-}
-
-#: the reference's other architectures, by family, not ported yet
-NOT_PORTED: dict[str, str] = {
-    "pna": "gnn", "dlrm-rm2": "recsys", "two-tower-retrieval": "recsys",
-    "xdeepfm": "recsys", "mind": "recsys",
+    "pna": "repro_torch.configs.pna",
+    "dlrm-rm2": "repro_torch.configs.dlrm_rm2",
+    "two-tower-retrieval": "repro_torch.configs.two_tower_retrieval",
+    "xdeepfm": "repro_torch.configs.xdeepfm",
+    "mind": "repro_torch.configs.mind",
 }
 
 ARCH_IDS = tuple(_REGISTRY)
@@ -80,11 +84,6 @@ ARCH_IDS = tuple(_REGISTRY)
 
 def get_arch(arch_id: str) -> ArchSpec:
     import importlib
-    if arch_id in NOT_PORTED:
-        raise NotImplementedError(
-            f"{arch_id} is a {NOT_PORTED[arch_id]} architecture; the port "
-            f"has no {NOT_PORTED[arch_id]} model yet (ROADMAP queue 1, "
-            f"off the main path)")
     mod = importlib.import_module(_REGISTRY[arch_id])
     return mod.ARCH
 

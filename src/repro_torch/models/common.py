@@ -180,12 +180,24 @@ def maybe_dequant(w, dtype=torch.bfloat16) -> torch.Tensor:
 # Misc
 # ---------------------------------------------------------------------------
 
+def trunc_normal(shape, generator: torch.Generator, device) -> torch.Tensor:
+    """Standard normal truncated to [-3, 3] by inverse-CDF sampling."""
+    lo = 0.5 * (1.0 + math.erf(-3.0 / math.sqrt(2.0)))
+    hi = 1.0 - lo
+    u = torch.rand(shape, generator=generator, device=device,
+                   dtype=torch.float32)
+    u = lo + u * (hi - lo)
+    return torch.erfinv(2.0 * u - 1.0) * math.sqrt(2.0)
+
+
 def count_params(params) -> int:
-    """Elements of every tensor leaf of a nested dict (an int8 leaf's
-    ``q`` and ``scale`` both count, as in JAX), or of a module's
-    parameters and buffers."""
+    """Elements of every tensor leaf of a tree of nested dicts and lists
+    (an int8 leaf's ``q`` and ``scale`` both count, as in JAX), or of a
+    module's parameters and buffers."""
     if isinstance(params, dict):
-        return sum(count_params(v) for v in params.values())
+        params = list(params.values())
+    if isinstance(params, list):
+        return sum(count_params(v) for v in params)
     if isinstance(params, torch.nn.Module):
         return sum(t.numel() for t in params.parameters()) + sum(
             t.numel() for t in params.buffers())

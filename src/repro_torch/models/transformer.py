@@ -178,16 +178,6 @@ def unstack_layers(layers: dict, n_layers: int) -> list[dict]:
     return [layer_params(cols, i) for i in range(n_layers)]
 
 
-def _trunc_normal(shape, generator: torch.Generator, device) -> torch.Tensor:
-    """Standard normal truncated to [-3, 3] by inverse-CDF sampling."""
-    lo = 0.5 * (1.0 + math.erf(-3.0 / math.sqrt(2.0)))
-    hi = 1.0 - lo
-    u = torch.rand(shape, generator=generator, device=device,
-                   dtype=torch.float32)
-    u = lo + u * (hi - lo)
-    return torch.erfinv(2.0 * u - 1.0) * math.sqrt(2.0)
-
-
 def init_params(cfg: TransformerConfig, generator: torch.Generator,
                 dtype=torch.float32, device=None) -> TransformerParams:
     """Random weights with ``tr.init_params``'s shapes and scales, drawn
@@ -201,13 +191,13 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     device = torch.device(device if device is not None else generator.device)
 
     def stack(shape_per_layer, fan_in):
-        w = _trunc_normal((L,) + shape_per_layer, generator, device)
+        w = cm.trunc_normal((L,) + shape_per_layer, generator, device)
         return (w * (1.0 / math.sqrt(fan_in))).to(dtype)
 
     def expert_stack(shape_per_layer, fan_in):
         w = torch.empty((L,) + shape_per_layer, dtype=dtype, device=device)
         for i in range(L):
-            w[i] = (_trunc_normal(shape_per_layer, generator, device)
+            w[i] = (cm.trunc_normal(shape_per_layer, generator, device)
                     * (1.0 / math.sqrt(fan_in)))
         return w
 
@@ -234,7 +224,7 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
         layers["w_down"] = expert_stack((E, f, d), f)
     vp = cfg.padded_vocab
     embed = torch.randn((vp, d), generator=generator, device=device) * 0.02
-    head = _trunc_normal((d, vp), generator, device) * (1.0 / math.sqrt(d))
+    head = cm.trunc_normal((d, vp), generator, device) * (1.0 / math.sqrt(d))
     return TransformerParams({"embed": embed.to(dtype), "head": head.to(dtype),
                               "ln_f": ones(d), "layers": layers})
 

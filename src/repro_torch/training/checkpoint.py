@@ -1,9 +1,9 @@
 """Checkpointing: atomic save/restore of nested dicts of tensors + an async
 writer.  The counterpart of ``repro.training.checkpoint``, in its on-disk
 layout, so either package restores what the other wrote:
-``step_%08d/leaf_%05d.npy`` (leaves in sorted-key order, as
-``jax.tree_util`` flattens a dict), ``meta.json`` and the ``COMMITTED``
-marker.
+``step_%08d/leaf_%05d.npy`` (leaves in sorted-key order inside a dict
+and index order inside a list, as ``jax.tree_util`` flattens them),
+``meta.json`` and the ``COMMITTED`` marker.
 
 Fault-tolerance contract: a checkpoint directory is only advertised (via the
 ``COMMITTED`` marker) after every array has been written and fsynced, so a
@@ -28,7 +28,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from repro_torch.training.pytree import leaves, tree_map, unflatten
+from repro_torch.training.pytree import children, leaves, tree_map, unflatten
 
 _MARKER = "COMMITTED"
 
@@ -44,10 +44,12 @@ def _to_host(leaf) -> np.ndarray:
 
 
 def _paths(tree, prefix: str = "") -> list[str]:
-    if isinstance(tree, dict):
-        return [p for key in sorted(tree)
-                for p in _paths(tree[key], f"{prefix}/{key}")]
-    return [prefix or "/"]
+    """Each leaf's path, in flattening order: ``/layers/0/msg/1/w``."""
+    kids = children(tree)
+    if kids is None:
+        return [prefix or "/"]
+    return [p for key, child in kids
+            for p in _paths(child, f"{prefix}/{key}")]
 
 
 def save(ckpt_dir: str | Path, step: int, tree) -> Path:

@@ -1,10 +1,10 @@
-"""Nested dicts of tensors as the JAX package's pytrees.
+"""Nested dicts and lists of tensors as the JAX package's pytrees.
 
-A tree is a dict whose values are trees or leaves (tensors, numpy
-arrays, Python numbers).  Leaves come in sorted-key order, as
-``jax.tree_util`` flattens a dict, so a tree's i-th leaf here is the
-i-th leaf of the same tree in JAX: checkpoints written by either package
-list their leaves in one order.
+A tree is a dict or a list whose values are trees or leaves (tensors,
+numpy arrays, Python numbers).  Leaves come in sorted-key order inside a
+dict and in index order inside a list, as ``jax.tree_util`` flattens
+them, so a tree's i-th leaf here is the i-th leaf of the same tree in JAX:
+checkpoints written by either package list their leaves in one order.
 """
 
 from __future__ import annotations
@@ -12,27 +12,43 @@ from __future__ import annotations
 from typing import Any, Callable
 
 
+def children(node) -> list | None:
+    """``(key, child)`` pairs of a dict (sorted keys) or a list (indices)
+    in flattening order; None for a leaf."""
+    if isinstance(node, dict):
+        return [(key, node[key]) for key in sorted(node)]
+    if isinstance(node, list):
+        return list(enumerate(node))
+    return None
+
+
 def leaves(tree) -> list:
-    """Every leaf of ``tree``, in sorted-key order."""
-    if isinstance(tree, dict):
-        return [leaf for key in sorted(tree) for leaf in leaves(tree[key])]
-    return [tree]
+    """Every leaf of ``tree``, in flattening order."""
+    kids = children(tree)
+    if kids is None:
+        return [tree]
+    return [leaf for _, child in kids for leaf in leaves(child)]
 
 
 def unflatten(tree_like, flat) -> Any:
     """A tree shaped like ``tree_like`` whose leaves are ``flat``, in
-    sorted-key order."""
+    flattening order."""
     flat = list(flat)
     n = len(leaves(tree_like))
     if len(flat) != n:
         raise ValueError(f"{len(flat)} leaves for a tree of {n}")
-    it = iter(flat)
+    return _build(tree_like, iter(flat))
 
-    def build(node):
-        if isinstance(node, dict):
-            return {key: build(node[key]) for key in sorted(node)}
-        return next(it)
-    return build(tree_like)
+
+def _build(node, it):
+    # a module-level function, not a closure: a recursive closure is a
+    # reference cycle that would hold ``it``, and with it every leaf
+    # (a step's gradients), until the cyclic collector runs
+    if isinstance(node, dict):
+        return {key: _build(node[key], it) for key in sorted(node)}
+    if isinstance(node, list):
+        return [_build(child, it) for child in node]
+    return next(it)
 
 
 def tree_map(fn: Callable, tree, *rest) -> Any:

@@ -1,16 +1,20 @@
-"""Port vs JAX: the LM architecture registry, int8 serving weights,
+"""Port vs JAX: the architecture registry, int8 serving weights,
 ``prefill`` and the serving launcher, on the CPU.
 
-* Every LM ``ArchSpec`` of ``repro_torch.configs`` (config, ``reduced()``,
-  shapes, source) equals the reference's, configs compared through
-  ``bridge.config_from_jax(dataclasses.asdict(...))``; the GNN and recsys
-  ids raise ``NotImplementedError``.
+* The registry holds the reference's ten ids in its order, and
+  ``all_cells()`` its 35 official and 40 total cells.  Every LM
+  ``ArchSpec`` of ``repro_torch.configs`` (config, ``reduced()``, shapes,
+  source) equals the reference's, configs compared through
+  ``bridge.config_from_jax(dataclasses.asdict(...))``; every GNN and
+  recsys ``ArchSpec`` too, configs field for field
+  (``dataclasses.asdict``), and PNA's ``config_for_shape`` at each shape.
 * ``quantize_for_serving`` gives JAX's int8 tree: ``q`` bit-equal, scales
   within 1e-6 relative (both divide the same float32 amax by 127), also
   when it quantizes a slice of axis 0 at a time; a JAX int8 tree carried
   across runs the same quantized ``forward`` (f32 compute, 1e-5).
 * ``launch.serve.main([..., "--device", "cpu"])`` serves every LM arch
-  at its reduced size.
+  at its reduced size; both launchers refuse a non-LM arch with
+  ``ValueError``, as the reference's do.
 """
 
 import dataclasses
@@ -37,19 +41,23 @@ from repro_torch.serving.request import State
 torch.set_num_threads(1)
 
 LM_IDS = [a for a in jbase.ARCH_IDS if jget_arch(a).family == "lm"]
+NON_LM_IDS = [a for a in jbase.ARCH_IDS if jget_arch(a).family != "lm"]
 F32_TOL = 1e-5
 BF16_TOL = 6e-2          # see tests/test_torch_model.py
 
 
 def test_registry_holds_the_reference_lm_ids():
-    assert list(tconfigs.ARCH_IDS) == LM_IDS
-    assert len(LM_IDS) == 5
+    """Every id of the reference, LMs first, in its order; its cells."""
+    assert list(tconfigs.ARCH_IDS) == list(jbase.ARCH_IDS)
+    assert list(tconfigs.ARCH_IDS[:5]) == LM_IDS and len(NON_LM_IDS) == 5
     assert set(tconfigs.__all__) == set(
         __import__("repro.configs", fromlist=["__all__"]).__all__)
-    cells = list(tconfigs.all_cells())
-    assert [(a.arch_id, s.name) for a, s in cells] == [
-        (a.arch_id, s.name) for a, s in jbase.all_cells()
-        if a.family == "lm"]
+    for skipped in (False, True):
+        cells = list(tconfigs.all_cells(include_skipped=skipped))
+        assert [(a.arch_id, s.name) for a, s in cells] == [
+            (a.arch_id, s.name)
+            for a, s in jbase.all_cells(include_skipped=skipped)]
+        assert len(cells) == (40 if skipped else 35)
 
 
 @pytest.mark.parametrize("arch_id", LM_IDS)
@@ -69,12 +77,40 @@ def test_arch_spec_is_a_copy(arch_id):
 
 
 def test_non_lm_ids_raise():
-    for arch_id in jbase.ARCH_IDS:
-        if jget_arch(arch_id).family != "lm":
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                get_arch(arch_id)
+    """Every GNN and recsys id resolves to the reference's ``ArchSpec``
+    (the family, source and shapes; configs in
+    ``test_non_lm_arch_spec_is_a_copy``); an unknown id raises."""
+    for arch_id in NON_LM_IDS:
+        j, t = jget_arch(arch_id), get_arch(arch_id)
+        assert (t.arch_id, t.family, t.source) == (j.arch_id, j.family,
+                                                   j.source)
+        assert t.family in ("gnn", "recsys")
+        assert [dataclasses.asdict(s) for s in t.shapes] == \
+            [dataclasses.asdict(s) for s in j.shapes]
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
+
+
+@pytest.mark.parametrize("arch_id", NON_LM_IDS)
+def test_non_lm_arch_spec_is_a_copy(arch_id):
+    """Config and ``reduced()`` field for field, of the same class name;
+    PNA's ``config_for_shape`` at every shape."""
+    j, t = jget_arch(arch_id), get_arch(arch_id)
+    for jc, tc in ((j.config, t.config), (j.reduced(), t.reduced())):
+        assert type(tc).__name__ == type(jc).__name__
+        assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
+        assert [f.name for f in dataclasses.fields(tc)] == \
+            [f.name for f in dataclasses.fields(jc)]
+    if arch_id == "pna":
+        from repro.configs import pna as jpna
+        from repro_torch.configs import pna as tpna
+        for shape in j.shapes:
+            assert dataclasses.asdict(tpna.config_for_shape(
+                t.shape(shape.name))) == dataclasses.asdict(
+                    jpna.config_for_shape(shape))
+    elif hasattr(j.config, "tables"):
+        jt, tt = j.config.tables(), t.config.tables()
+        assert (tt.total_rows, tt.dim) == (jt.total_rows, jt.dim)
 
 
 # ---------------------------------------------------------------------------
@@ -210,8 +246,11 @@ def test_launch_serve_iterative_and_refusals():
                         "--iterative", "4", "--device", "cpu"])
     assert all(r.state is State.DONE and r.retrievals_done >= 1
                for r in done)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="not a language model"):
         tserve.main(["--arch", "pna", "--device", "cpu"])
+    from repro_torch.launch import train as ttrain
+    with pytest.raises(ValueError, match="not a language model"):
+        ttrain.main(["--arch", "dlrm-rm2", "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tserve.main(["--arch", "granite-3-2b"])

@@ -7,7 +7,9 @@ feedback, ``compressed_psum`` on a one-rank gloo group, ``plan_mesh_shape``
 and the straggler monitor.  The second half holds the port against the
 JAX package on identical numpy inputs: ``adamw_update`` at steps 1 and 3
 with clipping active, ``lm_batches``, and checkpoints written by one
-package restored by the other.
+package restored by the other; trees with lists flatten as
+``jax.tree_util`` does, and a reduced DLRM-RM2 train state (MLPs as lists)
+checkpointed by either package restores in the other.
 
 Tolerance for ``adamw_update``: both sides run the same float32 operations
 in the same order, but XLA and torch may fuse or reduce them otherwise (the
@@ -390,3 +392,114 @@ def test_port_checkpoint_restores_in_jax(tmp_path):
     for a, b in zip(leaves(state), jax.tree_util.tree_leaves(restored)):
         np.testing.assert_array_equal(np.asarray(b), a.detach().numpy())
     assert int(restored["opt"]["step"]) == 3
+
+
+# ---------------------------------------------------------------------------
+# trees with lists (the recsys and GNN parameter trees)
+# ---------------------------------------------------------------------------
+
+def _list_tree(seed=0):
+    rng = np.random.default_rng(seed)
+    arr = lambda *s: rng.normal(size=s).astype(np.float32)  # noqa: E731
+    return {"z": [arr(2), {"w": arr(3, 2), "b": arr(2)}],
+            "a": {"layers": [{"msg": [{"w": arr(4), "b": arr(1)}],
+                              "ln": arr(2)},
+                             {"msg": [], "ln": arr(3)}]},
+            "m": [[arr(1), arr(5)], np.int32(7)]}
+
+
+def test_tree_with_lists_flattens_as_jax():
+    """Lists are tree nodes: items in index order inside the dicts'
+    sorted-key order, leaf for leaf ``jax.tree_util.tree_leaves``;
+    ``unflatten`` and ``tree_map`` keep the lists; checkpoint paths read
+    ``/a/layers/0/msg/0/w``."""
+    from repro_torch.training.pytree import tree_map, unflatten
+    tree = _list_tree()
+    want = jax.tree_util.tree_leaves(tree)
+    got = leaves(tree)
+    assert len(got) == len(want) == 10
+    for g, w in zip(got, want):
+        assert g is w
+    doubled = tree_map(lambda x: x * 2, tree)
+    assert isinstance(doubled["z"], list) and isinstance(
+        doubled["a"]["layers"][1]["msg"], list)
+    for g, w in zip(leaves(doubled),
+                    jax.tree_util.tree_leaves(
+                        jax.tree_util.tree_map(lambda x: x * 2, tree))):
+        np.testing.assert_array_equal(g, w)
+    rebuilt = unflatten(tree, range(10))
+    assert rebuilt["m"] == [[4, 5], 6]
+    assert rebuilt["z"] == [7, {"b": 8, "w": 9}]
+    assert ck._paths(tree) == [
+        "/a/layers/0/ln", "/a/layers/0/msg/0/b", "/a/layers/0/msg/0/w",
+        "/a/layers/1/ln", "/m/0/0", "/m/0/1", "/m/1", "/z/0", "/z/1/b",
+        "/z/1/w"]
+
+
+def test_unflatten_holds_no_leaf_after_it_returns():
+    """A tree built by ``unflatten`` (and so the gradients of
+    ``value_and_grad``) is freed as soon as its last reference goes, with
+    the cyclic collector off: no reference cycle keeps the leaves alive
+    (a recursive closure did, holding a step's gradients until the next
+    collection)."""
+    import gc
+    import weakref
+    from repro_torch.training.pytree import unflatten
+    leaf = torch.zeros(3)
+    ref = weakref.ref(leaf)
+    gc.collect()
+    gc.disable()
+    try:
+        tree = unflatten({"a": [0, {"b": 0}], "c": 0},
+                         [leaf, torch.ones(1), torch.ones(2)])
+        assert tree["a"][0] is leaf
+        del tree, leaf
+        assert ref() is None
+    finally:
+        gc.enable()
+
+
+def _dlrm_states():
+    """A JAX train state of reduced DLRM-RM2 (its ``bot`` and ``top``
+    MLPs are lists) and the port's from the same weights."""
+    from repro.configs import get_arch as jget_arch
+    from repro.models import recsys as jrec
+    from repro_torch import bridge
+    cfg = jget_arch("dlrm-rm2").reduced()
+    jparams = jrec.dlrm_init(jax.random.PRNGKey(0), cfg)
+    tparams = bridge.tree_from_jax(
+        jax.tree_util.tree_map(np.asarray, jparams), "cpu")
+    return joptim.init_opt_state, jparams, init_state(tparams)
+
+
+def test_jax_dlrm_checkpoint_restores_in_the_port(tmp_path):
+    init_opt, jparams, template = _dlrm_states()
+    opt = init_opt(jparams)
+    opt = {"m": jax.tree_util.tree_map(lambda x: x + 1.0, opt["m"]),
+           "v": jax.tree_util.tree_map(lambda x: x + 2.0, opt["v"]),
+           "step": opt["step"] + 5}
+    jstate = {"params": jparams, "opt": opt}
+    jck.save(tmp_path, 5, jstate)
+    restored, step = ck.restore(tmp_path, template)
+    assert step == 5 and isinstance(restored["params"]["bot"], list)
+    want = jax.tree_util.tree_leaves(jstate)
+    assert len(leaves(restored)) == len(want)
+    for a, b in zip(want, leaves(restored)):
+        np.testing.assert_array_equal(b.detach().numpy(), np.asarray(a))
+    assert restored["params"]["top"][0]["w"].requires_grad
+
+
+def test_port_dlrm_checkpoint_restores_in_jax(tmp_path):
+    init_opt, jparams, state = _dlrm_states()
+    with torch.no_grad():
+        for t in leaves(state["params"]):
+            t.add_(0.5)
+    state["opt"]["step"] += 2
+    ck.save(tmp_path, 2, state)
+    jtemplate = {"params": jax.tree_util.tree_map(jnp.zeros_like, jparams),
+                 "opt": init_opt(jparams)}
+    restored, step = jck.restore(tmp_path, jtemplate)
+    assert step == 2 and int(restored["opt"]["step"]) == 2
+    for a, b in zip(leaves(state), jax.tree_util.tree_leaves(restored)):
+        np.testing.assert_array_equal(np.asarray(b), a.detach().numpy())
+    assert isinstance(restored["params"]["top"], list)
