@@ -7,9 +7,11 @@ width (random weights from a seed), an encoder of ENCODER_120M's widths
 with Granite's vocabulary, and IVF-PQ retrieval; then Minitron-8B and
 ChatGLM3-6B in bf16 and int8 and the mixture-of-experts Moonlight-16B-A3B,
 each at full width; the LM trainer, Granite-3.0-2B trained at full
-width; and the recsys and GNN families, DLRM-RM2 trained and scored at
-full width -- and holds every CUDA kernel of those paths against
-its plain PyTorch version.  Full-sequence
+width; the recsys and GNN families, DLRM-RM2 trained and scored at
+full width; and the distributed layer's split-K decode, Granite served
+through ``attn_impl="splitk"`` and split across two ranks on the card --
+and holds every CUDA kernel of those paths against its plain PyTorch
+version.  Full-sequence
 attention (prefill, the encoder, greedy generation's prompt pass) runs the
 flash attention kernel on every path.  The paged path decodes through the
 paged-decode kernel; the dense path decodes through the dense decode
@@ -25,7 +27,8 @@ lines (and its seconds as a ``phase_seconds`` line), in order:
   device       card name, ``nvidia-smi`` name and power limit, TF32 flags
   build        nvcc build of ``src/repro_torch/csrc/*.cu`` (seconds)
   setup        model weights, corpus encode, IVF-PQ index, two engines
-  kernels      each kernel vs its plain version at its path's shapes,
+  kernels      each kernel vs its plain version at its path's shapes
+               (the dense kernel's partial entry at the splitk engine's),
                timed warm and cold in L2; paged decode at serve's and
                serve_plan's shapes and at the KV heads of Moonlight,
                Minitron and ChatGLM3 (D=128, G=1/4/16), dense decode also
@@ -117,7 +120,24 @@ lines (and its seconds as a ``phase_seconds`` line), in order:
                minibatch_lg (one 1,024-target subgraph sampled by
                ``graph_neighbor_sampler`` from a synthetic graph of
                Reddit's size, the sampler's host time printed), each
-               trained 5 steps; ogb_products is listed as not run
+               trained 5 steps; ogb_products is listed as not run.
+               DLRM-RM2 and every PNA shape train through their cell
+               programs (``launch/steps.py``, a 1 x 1 mesh), and PNA
+               full_graph_sm also runs the dst-partitioned forward on one
+               shard against ``gnn.forward``
+  distributed  on the emptied card, the split-K decode of the
+               distributed layer: Granite-3.0-2B at full width through
+               serve's engine config with ``attn_impl="splitk"`` (the dense
+               kernel's partial entry, 40 launches a decode step) and with
+               ``"cuda"``, 16 Poisson questions each, equal tokens up to a
+               near tie, TTFT and TPOT, a teacher-forced decode step plain
+               vs split-K; two ranks on this one card over gloo, each
+               holding half of one Granite-width layer's cache (B 16, S
+               32,768, bf16: 1.07 GB), the combine against the rank-free
+               kernel and the plain version, its time; the int8-KV split-K
+               decode variant cell (``build_lm_decode_variant``) at full
+               width, B 8, S 4,096, against the baseline decode step
+               (softmax within the reference's 0.1)
   serve_moe    last, on the emptied card: Moonlight-16B-A3B in the
                reference's config at full width (48 layers, 64 experts
                top-6, 56.1 GB of bf16 weights), an encoder of
@@ -531,6 +551,124 @@ def _decode_at(b, s, h_kv, g, d, lengths, seed) -> dict:
     return out
 
 
+#: the partial entry at the splitk engine's shape: serve's 8 slots over a
+#: page-gathered view of M*page = 1,024 positions, Granite's heads (H_kv
+#: 8, G 4, D 64), serve's lengths; whole (offset 0, one rank) and as the
+#: second of two ranks' shards (512 positions from offset 512)
+PARTIAL_SHAPE = (8, 1024, 8, 4, 64)
+
+
+def partial_bound(lengths, offset, s, h_kv, g, d, itemsize) -> tuple:
+    """Bytes: each K/V row the shard's visible lengths reach, once, q,
+    the lengths and the f32 outputs (acc, m, l); operations: 4 a (row,
+    head, column)."""
+    n_pos = sum(max(0, min(x - offset, s)) for x in lengths)
+    b = len(lengths)
+    n_bytes = (2 * n_pos * h_kv * d * itemsize + b * h_kv * g * d * itemsize
+               + 4 * b + 4 * b * h_kv * g * (d + 2))
+    return bound(n_bytes, 4 * n_pos * h_kv * g * d, "bfloat16")
+
+
+def check_decode_partial() -> dict:
+    """The dense kernel's partial entry (one rank's split-K shard) against
+    its plain version (``_local_decode_attn``) at PARTIAL_SHAPE, bf16 and
+    f32, whole and as a second shard (rows past the first shard empty
+    there: m = -inf, l = 0, acc = 0 exactly); the whole shape timed warm
+    and cold in L2 in bf16.  The library yardstick is the efficient
+    attention kernel's output and log-sum-exp (the same function, over K/V
+    heads repeated to the query heads beforehand and a bias of the
+    lengths); the port never calls it."""
+    import torch
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.decode_attention.ref import local_decode_attn_ref
+
+    b, s, h_kv, g, d = PARTIAL_SHAPE
+    lengths = SERVE_LENGTHS
+    rng = np.random.default_rng(5)
+    out = {"shape": [b, s, h_kv, g, d], "lengths": lengths,
+           "tol_reason": "m and l to the tolerance relative; acc / l as an "
+                         "output of order one: the plain version, as JAX's, "
+                         "scores in the input dtype and rounds p to it "
+                         "before P V, the kernel keeps both in f32"}
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-5)):
+        q = torch.tensor(rng.standard_normal((b, 1, h_kv * g, d)),
+                         dtype=dtype, device="cuda")
+        k = torch.tensor(rng.standard_normal((b, s, h_kv, d)), dtype=dtype,
+                         device="cuda")
+        v = torch.tensor(rng.standard_normal((b, s, h_kv, d)), dtype=dtype,
+                         device="cuda")
+        ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        errs = {}
+        for offset, lo in ((0, 0), (512, 512)):
+            kk, vv = k[:, lo:].contiguous(), v[:, lo:].contiguous()
+            acc, m, l = da.decode_attention_partial(q, kk, vv, ln, offset)
+            racc, rm, rl = local_decode_attn_ref(q, kk, vv, ln, offset, g)
+            torch.cuda.synchronize()
+            empty = rl == 0
+            if not (torch.equal(torch.isneginf(m), torch.isneginf(rm))
+                    and torch.isneginf(m[empty]).all()
+                    and (l[empty] == 0).all() and (acc[empty] == 0).all()):
+                raise AssertionError(f"decode partial {dtype} offset "
+                                     f"{offset}: empty rows not -inf/0/0")
+            live = ~empty
+            err = max(
+                float(((m - rm)[live]).abs().max()
+                      / max(1.0, float(rm[live].abs().max()))),
+                float(((l - rl)[live] / rl[live]).abs().max()),
+                float((acc[live] / l[live][..., None]
+                       - racc[live] / rl[live][..., None]).abs().max()))
+            if not err <= tol:
+                raise AssertionError(f"decode partial {dtype} offset "
+                                     f"{offset}: err {err} > {tol}")
+            errs[f"offset_{offset}"] = err
+        out[str(dtype).removeprefix("torch.")] = {**errs, "tol": tol}
+        if dtype is not torch.bfloat16:
+            continue
+        out["max_abs_err"] = max(errs.values())
+        out["ms"] = device_ms(lambda: da.decode_attention_partial(
+            q, k, v, ln, 0))
+        out["cold_ms"] = device_ms_cold(lambda: da.decode_attention_partial(
+            q, k, v, ln, 0))
+        out["plain_ms"] = device_ms(lambda: local_decode_attn_ref(
+            q, k, v, ln, 0, g))
+        out["bound_ms"], out["bound_by"] = partial_bound(
+            lengths, 0, s, h_kv, g, d, 2)
+        out["n_split_chunk"] = da.split_plan(
+            b, h_kv, s, da.tile_positions(d, q.element_size()))
+        out.update(library_yardstick(q, k, v, lengths, g))
+    return out
+
+
+def library_yardstick(q, k, v, lengths, g) -> dict:
+    """``_scaled_dot_product_efficient_attention`` with its log-sum-exp
+    over the same rows: its time and its output's error on the rows with
+    a visible position."""
+    import torch
+    b, _, h, d = q.shape
+    s = k.shape[1]
+    qs = q.transpose(1, 2).contiguous()                     # (B, H, 1, D)
+    ks = k.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
+    vs = v.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
+    ln = torch.tensor(lengths, device="cuda")
+    bias = torch.where(torch.arange(s, device="cuda")[None, :] < ln[:, None],
+                       0.0, float("-inf")).to(q.dtype)
+    bias = bias[:, None, None, :].expand(b, h, 1, s).contiguous()
+
+    def library():
+        return torch.ops.aten._scaled_dot_product_efficient_attention(
+            qs, ks, vs, bias, True)
+    got = library()[0]
+    ms = device_ms(library)
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    want = decode_attention_ref(q[:, 0].reshape(b, h // g, g, d), k, v,
+                                ln.to(torch.int32)).reshape(b, h, d)
+    live = ln > 0
+    err = float((got[:, :, 0].float() - want.float())[live].abs().max())
+    return {"library_ms": ms, "library_max_abs_err": err,
+            "library": "aten._scaled_dot_product_efficient_attention "
+                       "(output and log-sum-exp), K/V heads repeated"}
+
+
 def check_flash_attention() -> dict:
     """Kernel vs plain version at the shapes its paths run: the
     generator's prefill (B=1, S=1,024, H=32, H_kv=8, D=64, bf16, causal),
@@ -921,9 +1059,13 @@ def phase_kernels(engine) -> dict:
     emit({"phase": "kernels", "kernel": "decode_attention", **dense})
     flash = check_flash_attention()
     emit({"phase": "kernels", "kernel": "flash_attention", **flash})
+    partial = check_decode_partial()
+    emit({"phase": "kernels", "kernel": "decode_attention_partial",
+          **partial})
     torch.cuda.synchronize()
     return {"paged_decode_attention": pa, "pq_scan": pq,
-            "decode_attention": dense, "flash_attention": flash}
+            "decode_attention": dense, "flash_attention": flash,
+            "decode_attention_partial": partial}
 
 
 def phase_serve(engine, questions) -> dict:
@@ -998,7 +1140,8 @@ def _launch_counters() -> dict:
     from repro_torch.kernels.pq_scan import ops as pq
     return {"paged_decode_attention": pa.paged_decode_attention,
             "pq_scan": pq.pq_scan, "decode_attention": da.decode_attention,
-            "flash_attention": fa.flash_attention}
+            "flash_attention": fa.flash_attention,
+            "decode_attention_partial": da.decode_attention_partial}
 
 
 def reset_launches() -> None:
@@ -1688,17 +1831,20 @@ class PinnedRouting:
                 "flipped_unpinned": self.flips}
 
 
-def teacher_forced_paged(engine, questions) -> tuple[dict, np.ndarray]:
+def teacher_forced_paged(engine, questions,
+                         attn=None) -> tuple[dict, np.ndarray]:
     """Admit and prefill one fresh request a decode slot, then one
     teacher-forced decode step of the full-width model over the whole
-    pool, plain attention vs the paged kernel (``compare_logits``; an MoE
-    model's routing pinned to the plain run's: ``PinnedRouting``).  The
-    requests stay in their slots; returns the comparison and their
-    prompts' last 512 tokens."""
+    pool, plain attention vs the paged kernel, or vs ``attn`` when given
+    (``compare_logits``; an MoE model's routing pinned to the plain run's:
+    ``PinnedRouting``).  The requests stay in their slots; returns the
+    comparison and their prompts' last 512 tokens."""
     import torch
     from repro_torch.kernels.paged_attention.ops import paged_decode_attention
     from repro_torch.models import transformer as tr
     from repro_torch.serving.request import Request, State
+
+    attn = paged_decode_attention if attn is None else attn
 
     vocab = engine.gen.cfg.vocab_size
     dev = engine.device
@@ -1719,13 +1865,12 @@ def teacher_forced_paged(engine, questions) -> tuple[dict, np.ndarray]:
             torch.tensor(engine.pool.block_tables(), device=dev))
     logits = {}
     with PinnedRouting() as pin:
-        for name, attn in (("plain", None),
-                           ("kernel", paged_decode_attention)):
+        for name, impl in (("plain", None), ("kernel", attn)):
             # the step writes the same K/V rows before attending, so the
             # two runs see the same pool whichever goes first
             lg, _ = tr.paged_decode_step(
                 engine.gen.params, engine.pool.cache, *args, engine.gen.cfg,
-                attn_impl=attn, write_mask=torch.tensor(mask, device=dev))
+                attn_impl=impl, write_mask=torch.tensor(mask, device=dev))
             logits[name] = lg[slots, :vocab].float()
             pin.second_run()
     torch.cuda.synchronize()
@@ -2763,6 +2908,18 @@ def scaled_err(got, want) -> float:
                                                  1e-30)
 
 
+def row_scaled_err(got, want) -> float:
+    """The largest, over rows (dim 0), of max |got - want| over the row's
+    max |want|; a row of zeros in ``want`` must be zeros in ``got``
+    (infinite error otherwise)."""
+    import torch
+    diff = (got.float() - want.float()).abs().flatten(1).amax(1)
+    mag = want.float().abs().flatten(1).amax(1)
+    err = torch.where(mag > 0, diff / torch.clamp(mag, min=1e-30),
+                      torch.where(diff > 0, torch.inf, 0.0))
+    return float(err.max())
+
+
 def relu_recorder():
     """A ``TorchFunctionMode`` whose ``seen`` keeps a host copy of the input
     of every ``torch.relu`` call made under it, in call order."""
@@ -2903,47 +3060,43 @@ def check_score_parity(score_card, params_host, user: dict, cand, cfg,
     return out
 
 
-def train_steps(loss_fn, params, batch: dict, n_rows: int) -> dict:
-    """``RECSYS_STEPS`` AdamW steps on one batch at ``AdamWConfig()``, the
-    optimizer of the reference's recsys and GNN step programs
-    (``launch/steps.py``): forward+backward and AdamW on CUDA events, the
-    loss on the batch after the first step, the wall time of each step;
-    rows/s from the median of steps 2..5."""
+def train_steps(loss_fn, params, batch: dict, n_rows: int, cell) -> dict:
+    """``RECSYS_STEPS`` steps of ``cell`` (a train ``CellProgram`` of
+    ``launch/steps.py`` on a 1 x 1 mesh, AdamW at ``AdamWConfig()`` as in
+    the reference's step programs) on one batch: forward+backward and
+    AdamW on CUDA events, split by the step's ``mark``; the loss on the
+    batch after the first step; the wall time of each step; rows/s from
+    the median of steps 2..5."""
     import math
     import torch
-    from repro_torch.training.optim import AdamWConfig, adamw_update
+    from repro_torch.training.optim import init_opt_state
     from repro_torch.training.pytree import leaves
-    from repro_torch.training.train_loop import init_state, value_and_grad
 
-    state = init_state(params)
-    opt = AdamWConfig()
-    grad_fn = value_and_grad(loss_fn)
+    state = {"params": params, "opt": init_opt_state(params)}
     fb, adam, wall, losses = [], [], [], []
     after = None
     for i in range(RECSYS_STEPS):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         t0 = time.perf_counter()
         ev[0].record()
-        loss, grads = grad_fn(state["params"], batch)
-        ev[1].record()
-        adamw_update(grads, state["opt"], state["params"], opt)
+        state, metrics = cell.fn(state, batch, mark=ev[1].record)
         ev[2].record()
         ev[2].synchronize()
-        wall.append((time.perf_counter() - t0) * 1e3)
         fb.append(ev[0].elapsed_time(ev[1]))
         adam.append(ev[1].elapsed_time(ev[2]))
-        losses.append(float(loss))
-        del grads
+        wall.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
         if i == 0:
             with torch.no_grad():
                 after = float(loss_fn(state["params"], batch))
     n_params = sum(t.numel() for t in leaves(state["params"]))
     med = lambda xs: float(np.median(xs[1:]))  # noqa: E731
-    out = {"losses": losses, "loss_before": losses[0],
-           "loss_after_one_step": after, "fwd_bwd_ms": fb, "adamw_ms": adam,
-           "step_wall_ms": wall, "median_fwd_bwd_ms": med(fb),
-           "median_adamw_ms": med(adam), "median_step_ms": med(wall),
+    out = {"cell": cell.name, "losses": losses, "loss_before": losses[0],
+           "loss_after_one_step": after, "step_wall_ms": wall,
+           "median_step_ms": med(wall),
            "rows_per_s": n_rows / med(wall) * 1e3,
+           "fwd_bwd_ms": fb, "adamw_ms": adam, "median_fwd_bwd_ms": med(fb),
+           "median_adamw_ms": med(adam),
            "adamw_bound_ms": 28 * n_params / HBM_BYTES_PER_S * 1e3}
     if not all(math.isfinite(x) for x in losses + [after]):
         raise AssertionError("train: a loss is not finite")
@@ -2965,7 +3118,10 @@ def check_recsys(arch_id: str, card: str) -> dict:
     serve_p99 and serve_bulk forwards; RECSYS_STEPS AdamW steps at the
     train batch."""
     import torch
+    import dataclasses
     from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_recsys_cell
     from repro_torch.models.common import count_params
     from repro_torch.training.pytree import leaves, tree_map
 
@@ -3037,8 +3193,11 @@ def check_recsys(arch_id: str, card: str) -> dict:
         emit_reduced(f"{arch_id}:train_batch 65536 -> {b_train}", cut)
     torch.cuda.synchronize()
     train_batch = _to(recsys_inputs(arch_id, cfg, b_train, seed=2), DEVICE)
+    shape = arch.shape("train_batch")
+    cell = build_recsys_cell(arch, dataclasses.replace(
+        shape, dims=dict(shape.dims, batch=b_train)), make_host_mesh())
     out["train"] = dict(batch=b_train, **train_steps(
-        loss_fn, params, train_batch, b_train))
+        loss_fn, params, train_batch, b_train, cell))
     out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
     emit(out)
     return out
@@ -3194,9 +3353,11 @@ def check_pna(shape_name: str, card: str) -> dict:
     the forward's time; RECSYS_STEPS AdamW steps on the batch."""
     import torch
     from repro_torch.configs import pna as pna_cfg
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_gnn_cell
     from repro_torch.models import gnn
     from repro_torch.models.common import count_params
-    from repro_torch.training.pytree import leaves, tree_map
+    from repro_torch.training.pytree import leaves
 
     shape = pna_cfg.ARCH.shape(shape_name)
     cfg = pna_cfg.config_for_shape(shape)
@@ -3220,13 +3381,35 @@ def check_pna(shape_name: str, card: str) -> dict:
                       "graph_level": cfg.graph_level}, "batch": info}
     if shape_name == "full_graph_sm":
         out["parity"] = pna_parity(params, loss_fn, fwd, batch, gen)
+        out["partitioned"] = check_partitioned_one_shard(params, cfg, batch,
+                                                         fwd)
     with torch.no_grad():
         out["forward_ms"] = cuda_ms(lambda: fwd(params, batch))
-    out["train"] = train_steps(loss_fn, params, batch, info["nodes"])
+    # every PNA shape trains through its cell program (launch/steps.py)
+    cell = build_gnn_cell(pna_cfg.ARCH, shape, make_host_mesh())
+    out["train"] = train_steps(loss_fn, params, batch, info["nodes"], cell)
     out["train"]["nodes_per_s"] = out["train"].pop("rows_per_s")
     out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
     emit(out)
     return out
+
+
+def check_partitioned_one_shard(params, cfg, batch: dict, fwd) -> dict:
+    """The dst-partitioned PNA forward on one shard (a 1 x 1 mesh: no
+    collective) against ``gnn.forward`` on the card, within the
+    reference's 1e-4 of the output's largest magnitude."""
+    import torch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.gnn_partitioned import forward_partitioned
+    with torch.no_grad():
+        part = forward_partitioned(params, batch["x"], batch["edges"], cfg,
+                                   make_host_mesh(),
+                                   ("data", "model"), batch["edge_mask"])
+        want = fwd(params, batch)
+    err = scaled_err(part, want.cpu())
+    if not err <= 1e-4:
+        raise AssertionError(f"partitioned PNA on one shard: {err} > 1e-4")
+    return {"err_of_largest_magnitude": err, "tol": 1e-4}
 
 
 def phase_recsys_gnn() -> dict:
@@ -3254,6 +3437,410 @@ def phase_recsys_gnn() -> dict:
         raise AssertionError("recsys_gnn: the path launched a serving "
                              "kernel")
     return out
+
+
+# ---------------------------------------------------------------------------
+# distributed: split-K decode on the card
+# ---------------------------------------------------------------------------
+
+#: one Granite-width layer's split-K decode over two ranks on the card:
+#: (B, S, H, H_kv, D), bf16 (1.07 GB of K/V, half on each rank)
+SPLITK_SHAPE = (16, 32768, 32, 8, 64)
+SPLITK_RANKS = 2
+SPLITK_REPS = 10
+#: the decode variant cell at Granite's full width on a 1 x 1 mesh
+VARIANT_DIMS = {"seq_len": 4096, "global_batch": 8}
+VARIANT_POS = [4095, 4000, 3000, 2048, 1024, 100, 1, 0]
+VARIANT_SOFTMAX_BOUND = 0.1   # the reference's int8-KV softmax bound
+#: the variant step's logits vs the same step given plain f32 attention:
+#: one bf16 step apart in a layer's attention grows to 0.20 over 40
+#: random-weight layers (H100, PR 22)
+VARIANT_LOGIT_TOL = 0.5
+#: split-K output vs a whole-cache version, of each row's largest
+#: magnitude: one bf16 step of that value is 2^-8 to 2^-7 of it
+SPLITK_ROW_TOL = 2e-2
+
+
+def splitk_lengths(s: int) -> list[int]:
+    """Lengths that leave the second rank's shard empty, partly and
+    wholly visible, and one past S (clamps)."""
+    h = s // SPLITK_RANKS
+    return [0, 1, 100, h - 1, h, h + 1, h + 4097, s - 1, s, s + 1, 7000,
+            12345, 20000, 30000, 2, h + 2]
+
+
+def splitk_rank(rank: int, world: int, port: int, out: str, shape: tuple,
+                device: str) -> None:
+    """One rank of the two-rank split-K decode on one card over gloo: its
+    half of the sequence, the partial kernel, the combine's all-reduces;
+    rank 0 also runs the rank-free kernel and the plain version over the
+    whole cache.  Writes ``splitk_rank{rank}.json`` under ``out``."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.distributed.decode_attn import (
+        make_distributed_decode_attn)
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    res = {"rank": rank, "collectives_on": f"{device} tensors"}
+    try:
+        dist.all_reduce(torch.ones(1, device=device))
+    except RuntimeError as e:
+        # gloo without CUDA support: only the (B, H) and (B, H, D)
+        # partials go through the host; the kernel stays on the card
+        res["collectives_on"] = f"host copies ({str(e)[:120]})"
+        reduce = dist.all_reduce
+
+        def staged(t, op=dist.ReduceOp.SUM, group=None):
+            host = t.cpu()
+            reduce(host, op=op, group=group)
+            t.copy_(host)
+        dist.all_reduce = staged
+    b, s, h, h_kv, d = shape
+    g = h // h_kv
+    gen = torch.Generator(device=device).manual_seed(11)
+    q = torch.randn((b, 1, h, d), generator=gen, device=device,
+                    dtype=torch.bfloat16)
+    k = torch.randn((b, s, h_kv, d), generator=gen, device=device,
+                    dtype=torch.bfloat16)
+    v = torch.randn((b, s, h_kv, d), generator=gen, device=device,
+                    dtype=torch.bfloat16)
+    ln = torch.tensor(splitk_lengths(s)[:b], dtype=torch.int32,
+                      device=device)
+    s_loc = s // world
+    kh = k[:, rank * s_loc:(rank + 1) * s_loc].contiguous()
+    vh = v[:, rank * s_loc:(rank + 1) * s_loc].contiguous()
+    mesh = DeviceMesh("cpu", torch.arange(world)[None],
+                      mesh_dim_names=("data", "model"))
+    attn = make_distributed_decode_attn(mesh, g)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    da.decode_attention_partial.launches = 0
+    got = attn(q, kh, vh, ln)
+    sync()
+    res["partial_launches"] = da.decode_attention_partial.launches
+    times = []
+    for _ in range(SPLITK_REPS):
+        dist.barrier()
+        t0 = time.perf_counter()
+        attn(q, kh, vh, ln)
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    res["combine_ms"] = times
+    t0 = time.perf_counter()
+    for _ in range(SPLITK_REPS):
+        da.decode_attention_partial(q, kh, vh, ln, rank * s_loc)
+    sync()
+    res["partial_ms_host_clock"] = ((time.perf_counter() - t0) * 1e3
+                                    / SPLITK_REPS)
+    if rank == 0:
+        kernel = da.decode_attention(q, k, v, ln)
+        plain = decode_attention_ref(q[:, 0].reshape(b, h_kv, g, d), k, v,
+                                     ln).reshape(b, 1, h, d)
+        sync()
+        for name, want in (("kernel", kernel), ("plain", plain)):
+            res[f"max_abs_err_vs_{name}"] = float(
+                (got.float() - want.float()).abs().max())
+            res[f"row_scaled_err_vs_{name}"] = row_scaled_err(got, want)
+        res["finite"] = bool(torch.isfinite(got).all())
+    with open(Path(out) / f"splitk_rank{rank}.json", "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def check_two_ranks() -> dict:
+    """SPLITK_RANKS processes on cuda:0 (NCCL takes one rank a card, gloo
+    takes more), each holding half of one Granite-width layer's cache:
+    the split-K output against the rank-free kernel and the plain
+    version over the whole cache (within ``SPLITK_ROW_TOL`` of each
+    row's largest magnitude; the absolute errors printed beside), and
+    the combine's time."""
+    import torch.multiprocessing as mp
+    out_dir = ROOT / "build" / "splitk"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for f in out_dir.glob("splitk_rank*.json"):
+        f.unlink()
+    t0 = time.perf_counter()
+    ctx = mp.spawn(splitk_rank, args=(SPLITK_RANKS, free_port(),
+                                      str(out_dir), SPLITK_SHAPE, DEVICE),
+                   nprocs=SPLITK_RANKS, join=False)
+    while not ctx.join(timeout=10):
+        if time.perf_counter() - t0 > 300:
+            for proc in ctx.processes:
+                proc.kill()
+            raise AssertionError("two-rank split-K did not finish in 300 s")
+    ranks = [json.loads((out_dir / f"splitk_rank{r}.json").read_text())
+             for r in range(SPLITK_RANKS)]
+    r0 = ranks[0]
+    b, s, h, h_kv, d = SPLITK_SHAPE
+    res = {"shape": {"B": b, "S": s, "H": h, "H_kv": h_kv, "D": d,
+                     "dtype": "bfloat16", "ranks": SPLITK_RANKS},
+           "kv_bytes": 2 * b * s * h_kv * d * 2,
+           "lengths": splitk_lengths(s)[:b], "ranks": ranks,
+           "collectives_on": r0["collectives_on"],
+           **{k: r0[k] for k in r0 if "_err_vs_" in k},
+           "row_scaled_tol": SPLITK_ROW_TOL,
+           "combine_ms_median": float(np.median(
+               [t for r in ranks for t in r["combine_ms"]])),
+           "wall_s": time.perf_counter() - t0}
+    if not (r0["finite"]
+            and r0["row_scaled_err_vs_kernel"] <= SPLITK_ROW_TOL
+            and r0["row_scaled_err_vs_plain"] <= SPLITK_ROW_TOL):
+        raise AssertionError(f"two-rank split-K disagrees: {res}")
+    if DEVICE == "cuda" and any(r["partial_launches"] != 1 for r in ranks):
+        raise AssertionError("a rank did not launch the partial kernel once")
+    return res
+
+
+def serve_splitk(engine, questions) -> dict:
+    """Serve the questions on ``engine`` through a server, with every
+    kernel's launches over the run."""
+    import torch
+    from repro_torch.serving.server import RAGServer, poisson_offsets
+    server = RAGServer(engine)
+    reset_launches()
+    t0 = time.perf_counter()
+    handles = server.replay(questions,
+                            poisson_offsets(QPS, len(questions), seed=0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    summary = server.summary()
+    snap = engine.metrics_snapshot()
+    return {"wall_s": wall, "n_done": summary["n_done"],
+            "ttft_s": summary["ttft_s"], "ttft_p99_s": summary["ttft_p99_s"],
+            "tpot_s": summary["tpot_s"], "tpot_p99_s": summary["tpot_p99_s"],
+            "decode_steps": snap["decode_host_syncs"],
+            "stage_time_s": snap["stage_time_s"],
+            "attn_impl": snap["attn_impl"], "launches": read_launches(),
+            "requests": [h.request for h in handles], "snap": snap}
+
+
+def check_splitk_serving() -> dict:
+    """Granite-3.0-2B at full width through serve's engine config with
+    ``attn_impl="splitk"`` and with ``"cuda"``, sharing the generator,
+    the encoder, the corpus encode and the IVF-PQ index: 16 Poisson
+    questions on each.  The splitk engine decodes through the partial
+    kernel (40 launches a decode step, no other attention kernel); its
+    tokens equal the cuda engine's, or differ first at a near tie (plain
+    top-2 margin <= 2 x ``compare_logits``' atol); then a teacher-forced
+    decode step, plain attention vs the engine's split-K callable."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import granite_3_2b
+    from repro_torch.data.synthetic import topical_corpus
+    from repro_torch.models import transformer as tr
+    from repro_torch.serving.engine import Component, RAGEngine
+
+    t0 = time.perf_counter()
+    cfg = granite_3_2b.CONFIG
+    gen = Component(cfg, tr.init_params(
+        cfg, torch.Generator(device=DEVICE).manual_seed(0),
+        dtype=torch.bfloat16, device=DEVICE))
+    enc = encoder_component(cfg.vocab_size)
+    corpus, _topics, make_q = topical_corpus(4096, 256, cfg.vocab_size)
+    base = RAGEngine(gen, enc, corpus, serve_engine_config(), device=DEVICE)
+    splitk = RAGEngine(gen, enc, corpus, dataclasses.replace(
+        serve_engine_config(), attn_impl="splitk"),
+        db_vectors=base.db_vectors, backend=base.backend.chain[0],
+        device=DEVICE)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    questions = [make_q(i % 8) for i in range(N_QUESTIONS)]
+    runs = {name: serve_splitk(eng, questions)
+            for name, eng in (("cuda", base), ("splitk", splitk))}
+    sk, cu = runs["splitk"], runs["cuda"]
+    check_served(base, cu["requests"], questions, cu["snap"], NEW_TOKENS)
+    for r in sk["requests"]:
+        if not all(0 <= t < cfg.vocab_size for t in r.output):
+            raise AssertionError(f"splitk request {r.rid}: token out of "
+                                 f"range")
+    n_layers = cfg.n_layers
+    launches = sk["launches"]
+    if sk["attn_impl"] != "splitk" or sk["n_done"] != len(questions):
+        raise AssertionError(f"splitk engine: {sk['attn_impl']}, "
+                             f"{sk['n_done']} done")
+    if launches["decode_attention_partial"] != n_layers * sk["decode_steps"]:
+        raise AssertionError(f"partial kernel launched "
+                             f"{launches['decode_attention_partial']} "
+                             f"times, expected {n_layers} x "
+                             f"{sk['decode_steps']}")
+    if any(launches[k] for k in ("paged_decode_attention",
+                                 "decode_attention", "flash_attention")):
+        raise AssertionError(f"splitk engine launched another attention "
+                             f"kernel: {launches}")
+    out = {"model": cfg.name, "setup_s": setup_s, "equal": 0,
+           "near_ties": [], "runs": {}}
+    for i, (a, b) in enumerate(zip(cu["requests"], sk["requests"])):
+        if a.retrieved_ids != b.retrieved_ids or len(b.output) != NEW_TOKENS:
+            raise AssertionError(f"splitk request {i}: {a.retrieved_ids} vs "
+                                 f"{b.retrieved_ids}, {len(b.output)} "
+                                 f"tokens")
+        if a.output == b.output:
+            out["equal"] += 1
+            continue
+        step = next(t for t, (x, y) in enumerate(zip(a.output, b.output))
+                    if x != y)
+        margin = near_tie_margin(gen, a.prompt, np.asarray(a.output[:step]),
+                                 DEVICE)
+        tie = {"request": i, "step": step, "cuda": a.output[step],
+               "splitk": b.output[step], "plain_top2_margin": margin}
+        out["near_ties"].append(tie)
+        if not margin <= 2 * 0.1:
+            raise AssertionError(f"splitk vs cuda: not a near tie: {tie}")
+    for name, r in runs.items():
+        out["runs"][name] = {k: r[k] for k in (
+            "wall_s", "n_done", "ttft_s", "ttft_p99_s", "tpot_s",
+            "tpot_p99_s", "decode_steps", "stage_time_s", "launches")}
+    out["partial_launches"] = launches["decode_attention_partial"]
+    out["teacher_forced"], _ = teacher_forced_paged(splitk, questions,
+                                                    splitk.paged_attn)
+    abort_all(splitk, "distributed check done")
+    return out
+
+
+def check_decode_variant() -> dict:
+    """``build_lm_decode_variant(splitk=True, int8_kv=True)`` at Granite's
+    full width on a 1 x 1 mesh, B 8, S 4,096: its cache int8 with bf16
+    scales (``_quantize_token`` of a bf16 cache drawn from a seed); one
+    step (40 launches of the partial) against the same step given plain
+    attention in f32 over the same cache, dequantized as the reference
+    does: each layer's split-K attention on that step's inputs within
+    ``SPLITK_ROW_TOL`` of each row's largest magnitude, the logits
+    within ``VARIANT_LOGIT_TOL``; the softmax gap to the baseline
+    ``decode_step`` on the bf16 cache within the reference's 0.1."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed.decode_attn import (
+        make_distributed_decode_attn, reference_decode_attn)
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as tr
+    from repro_torch.perf.variants import (_quantize_token,
+                                           build_lm_decode_variant,
+                                           decode_step_variant)
+
+    arch = get_arch("granite-3-2b")
+    cfg = arch.config
+    shape = ShapeSpec("decode_4k", "decode", VARIANT_DIMS)
+    prog = build_lm_decode_variant(arch, shape, make_host_mesh(),
+                                   splitk=True, int8_kv=True)
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    params = tr.quantize_for_serving(tr.init_params(
+        cfg, gen, dtype=torch.bfloat16, device=DEVICE)).tree()
+    b, s = VARIANT_DIMS["global_batch"], VARIANT_DIMS["seq_len"]
+    shp = (cfg.n_layers, b, s, cfg.n_kv_heads, cfg.d_head)
+    bf16 = {k: torch.randn(shp, generator=gen, device=DEVICE,
+                           dtype=torch.bfloat16) for k in ("k", "v")}
+    q8 = {}
+    for k in ("k", "v"):
+        q8[k] = torch.empty(shp, dtype=torch.int8, device=DEVICE)
+        q8[k + "_scale"] = torch.empty(shp[:-1], dtype=torch.bfloat16,
+                                       device=DEVICE)
+        for i in range(cfg.n_layers):
+            codes, scale = _quantize_token(bf16[k][i].reshape(
+                b * s, cfg.n_kv_heads, cfg.d_head))
+            q8[k][i] = codes.reshape(shp[1:])
+            q8[k + "_scale"][i] = scale.reshape(shp[1:-1])
+    token = torch.randint(0, cfg.vocab_size, (b,), generator=gen,
+                          device=DEVICE, dtype=torch.int32)
+    pos = torch.tensor(VARIANT_POS, dtype=torch.int32, device=DEVICE)
+    torch.cuda.synchronize()
+    da.decode_attention_partial.launches = 0
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    logits, _ = prog.fn(params, q8, token, pos)
+    ev[1].record()
+    launches = da.decode_attention_partial.launches
+    ev[2].record()
+    base, _ = tr.decode_step(params, bf16, token, pos, cfg)
+    ev[3].record()
+    ev[3].synchronize()
+
+    # the same step with plain attention (the new token's K/V are written
+    # again, to the same values) in f32, as the kernel keeps scores and p
+    # (in bf16 the plain version read 1.2e-2 of a row from it on the
+    # H100); each layer also runs the program's split-K callable on its
+    # inputs
+    split = make_distributed_decode_attn(make_host_mesh(), cfg.q_per_kv,
+                                         quantized=True)
+    layer_errs = []
+
+    def plain_attn(q, kc, vc, ks, vs, cache_len):
+        k = kc.to(q.dtype) * ks[..., None].to(q.dtype)
+        v = vc.to(q.dtype) * vs[..., None].to(q.dtype)
+        want = reference_decode_attn(q.float(), k.float(), v.float(),
+                                     cache_len, cfg.q_per_kv).to(q.dtype)
+        layer_errs.append(row_scaled_err(
+            split(q, kc, vc, ks, vs, cache_len), want))
+        return want
+
+    plain, _ = decode_step_variant(params, q8, token, pos, cfg, plain_attn,
+                                   int8_kv=True)
+    vocab = cfg.vocab_size
+    plain, got = plain[:, :vocab].float(), logits[:, :vocab].float()
+    top2 = torch.topk(plain, 2, dim=-1).values
+    logit_diff = float((plain - got).abs().max())
+    gap = float((torch.softmax(got, -1)
+                 - torch.softmax(base[:, :vocab].float(), -1)).abs().max())
+    res = {"cell": prog.name, "batch": b, "seq_len": s,
+           "int8_cache_bytes": sum(q8[k].numel() for k in ("k", "v")),
+           "scale_bytes": sum(q8[k].numel() * 2
+                              for k in ("k_scale", "v_scale")),
+           "bf16_cache_bytes": sum(t.numel() * 2 for t in bf16.values()),
+           "attention_row_scaled_err": layer_errs,
+           "attention_row_scaled_tol": SPLITK_ROW_TOL,
+           "logits_max_abs_diff": logit_diff,
+           "logits_tol": VARIANT_LOGIT_TOL,
+           "argmax_equal": int((plain.argmax(-1) == got.argmax(-1)).sum()),
+           "plain_top2_margins": (top2[:, 0] - top2[:, 1]).tolist(),
+           "softmax_max_abs_gap_to_baseline": gap,
+           "reference_softmax_bound": VARIANT_SOFTMAX_BOUND,
+           "partial_launches": launches, "variant_step_ms":
+           ev[0].elapsed_time(ev[1]), "baseline_step_ms":
+           ev[2].elapsed_time(ev[3]),
+           "finite": bool(torch.isfinite(logits).all())}
+    if not (res["finite"] and len(layer_errs) == cfg.n_layers
+            and max(layer_errs) <= SPLITK_ROW_TOL
+            and logit_diff <= VARIANT_LOGIT_TOL
+            and gap < VARIANT_SOFTMAX_BOUND):
+        raise AssertionError(f"decode variant: {res}")
+    if launches != cfg.n_layers:
+        raise AssertionError(f"decode variant launched the partial "
+                             f"{launches} times, expected {cfg.n_layers}")
+    return res
+
+
+def phase_distributed() -> dict:
+    """The split-K decode on the card: Granite-3.0-2B served at full width
+    through ``attn_impl="splitk"`` against the ``"cuda"`` engine; the
+    combine across two real ranks on one card; the int8-KV decode
+    variant cell at full width on a 1 x 1 mesh."""
+    import torch
+    card = nvidia_smi_line()
+    res = {"phase": "distributed", "card": card}
+    res["serve"] = check_splitk_serving()
+    emit({"phase": "distributed", "serve": res["serve"]})
+    release_device_memory()
+    res["two_ranks"] = check_two_ranks()
+    emit({"phase": "distributed", "two_ranks": res["two_ranks"]})
+    res["variant"] = check_decode_variant()
+    res["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    emit({"phase": "distributed", "variant": res["variant"],
+          "peak_mem_bytes": res["peak_mem_bytes"]})
+    return res
 
 
 #: the MoE phase: Moonlight-16B-A3B in the reference's config
@@ -3553,6 +4140,8 @@ def main() -> int:
     release_device_memory()
     timed("recsys_gnn", phase_recsys_gnn)
     release_device_memory()
+    distributed = timed("distributed", phase_distributed)
+    release_device_memory()
     timed("serve_moe", phase_serve_moe)
 
     sources = {
@@ -3567,15 +4156,21 @@ def main() -> int:
         "flash_attention": (
             "src/repro_torch/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention/flash_attention.py:61"),
+        "decode_attention_partial": (
+            "src/repro_torch/csrc/decode_attention.cu",
+            "src/repro/kernels/decode_attention/decode_attention.py:70"),
     }
     # each kernel's launches on the path it serves: the paged serve phase
     # for paged attention and the PQ scan, serve_dense for dense attention,
-    # serve_plan for flash attention
+    # serve_plan for flash attention, the distributed phase's splitk
+    # engine for the dense kernel's partial entry
     launches = {**served["launches"],
                 "decode_attention":
                 served_dense["launches"]["decode_attention"],
                 "flash_attention":
-                served_plan["launches"]["flash_attention"]}
+                served_plan["launches"]["flash_attention"],
+                "decode_attention_partial":
+                distributed["serve"]["partial_launches"]}
     kernels = []
     for name, (source, replaces) in sources.items():
         c = checks[name]

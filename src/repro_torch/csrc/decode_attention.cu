@@ -19,6 +19,15 @@
 // cache_len would cost a host sync per layer -- and splits past the
 // length return at once.
 //
+// The partial entry (`decode_attention_partial_*`) is one rank's shard of
+// the split-K decode of src/repro/distributed/decode_attn.py
+// (`_local_decode_attn`): the shard holds positions [offset, offset + S)
+// of each sequence, so its visible length clamp(cache_len[b] - offset, 0,
+// S) is found on the device, and it writes the un-normalised f32 acc, m
+// (natural log) and l of every query head -- -inf / 0 / 0 where nothing is
+// visible -- for the ranks' combine.  Same split pass and merge, with the
+// `Unnormalised` output of `decode_split.cuh`.
+//
 // What bounds it: the bytes of K/V it must read, min(len, S)*H_kv*D*2
 // values per sequence; the arithmetic, ~4*G*D operations per position and
 // head, is far under the card's rate.  The cp.async ring of the split
@@ -52,12 +61,13 @@ struct DenseRows {
   }
 };
 
-// Split kernel: block (b, h * n_gblk + gb, split).
-template <typename T, int D, int G>
+// Split kernel: block (b, h * n_gblk + gb, split).  The block's sequence
+// holds positions [offset, offset + s) of cache_len[b].
+template <typename T, int D, int G, typename Out>
 __global__ void __launch_bounds__(kThreads) split_kernel(
     const T* __restrict__ q, const T* __restrict__ k_cache,
     const T* __restrict__ v_cache, const int* __restrict__ cache_len,
-    T* __restrict__ out, float* __restrict__ part_acc,
+    int offset, Out o, float* __restrict__ part_acc,
     float* __restrict__ part_ml, int s, int h_kv, int g_n, int n_gblk,
     int chunk, float scale_log2) {
   const int b = blockIdx.x;
@@ -66,46 +76,51 @@ __global__ void __launch_bounds__(kThreads) split_kernel(
   DenseRows<T, D> rows{reinterpret_cast<const char*>(k_cache + row0),
                        reinterpret_cast<const char*>(v_cache + row0),
                        static_cast<size_t>(h_kv) * D * sizeof(T)};
-  decode_split::split_body<T, D, G>(q, max(0, min(cache_len[b], s)), rows,
-                                    out, part_acc, part_ml, h_kv, g_n,
-                                    n_gblk, chunk, scale_log2);
+  decode_split::split_body<T, D, G>(
+      q, max(0, min(cache_len[b] - offset, s)), rows, o, part_acc, part_ml,
+      h_kv, g_n, n_gblk, chunk, scale_log2);
 }
 
-template <typename T, int D, int G>
+// `Out` is where a launch's result goes: `decode_split::Normalised<T>`
+// (the (B, H_kv, g_n, D) output in T) or `decode_split::Unnormalised` (the
+// partial entry's f32 acc, m and l).
+template <typename T, int D, int G, typename Out>
 int launch(const void* q, const void* k_cache, const void* v_cache,
-           const void* cache_len, void* out, void* scratch, int b, int s,
-           int h_kv, int g_n, int n_split, int chunk, cudaStream_t stream) {
+           const void* cache_len, int offset, const Out& o, void* scratch,
+           int b, int s, int h_kv, int g_n, int n_split, int chunk,
+           cudaStream_t stream) {
   const int n_gblk = (g_n + G - 1) / G;
   const decode_split::Partials parts(scratch, b, h_kv, n_split, g_n, D);
   split_kernel<T, D, G><<<dim3(b, h_kv * n_gblk, n_split), kThreads, 0,
                           stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_cache),
       static_cast<const T*>(v_cache), static_cast<const int*>(cache_len),
-      static_cast<T*>(out), parts.acc, parts.ml, s, h_kv, g_n, n_gblk, chunk,
+      offset, o, parts.acc, parts.ml, s, h_kv, g_n, n_gblk, chunk,
       decode_split::scale_log2(D));
   const int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  return decode_split::merge<T>(cache_len, parts, out, b, s, h_kv, g_n, D,
-                                n_split, chunk, stream);
+  return decode_split::merge(cache_len, offset, parts, o, b, s, h_kv, g_n, D,
+                             n_split, chunk, stream);
 }
 
-template <typename T, int D>
+template <typename T, int D, typename Out>
 int launch_g(const void* q, const void* k_cache, const void* v_cache,
-             const void* cache_len, void* out, void* scratch, int b, int s,
-             int h_kv, int g_n, int n_split, int chunk, cudaStream_t stream) {
+             const void* cache_len, int offset, const Out& o, void* scratch,
+             int b, int s, int h_kv, int g_n, int n_split, int chunk,
+             cudaStream_t stream) {
   if (g_n <= 4) {
-    return launch<T, D, 4>(q, k_cache, v_cache, cache_len, out, scratch, b,
-                           s, h_kv, g_n, n_split, chunk, stream);
+    return launch<T, D, 4>(q, k_cache, v_cache, cache_len, offset, o,
+                           scratch, b, s, h_kv, g_n, n_split, chunk, stream);
   }
-  return launch<T, D, 8>(q, k_cache, v_cache, cache_len, out, scratch, b, s,
-                         h_kv, g_n, n_split, chunk, stream);
+  return launch<T, D, 8>(q, k_cache, v_cache, cache_len, offset, o, scratch,
+                         b, s, h_kv, g_n, n_split, chunk, stream);
 }
 
 // Head widths the kernel is built for; the Python wrapper refuses others.
-template <typename T>
+template <typename T, typename Out>
 int dispatch(const void* q, const void* k_cache, const void* v_cache,
-             const void* cache_len, void* out, void* scratch, int b, int s,
-             int h_kv, int g_n, int d, int n_split, int chunk,
+             const void* cache_len, int offset, const Out& o, void* scratch,
+             int b, int s, int h_kv, int g_n, int d, int n_split, int chunk,
              void* stream) {
   if (b == 0 || h_kv == 0 || g_n == 0) return 0;
   if (n_split < 1 || chunk < 1 ||
@@ -116,20 +131,35 @@ int dispatch(const void* q, const void* k_cache, const void* v_cache,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 16:
-      return launch_g<T, 16>(q, k_cache, v_cache, cache_len, out, scratch, b,
-                             s, h_kv, g_n, n_split, chunk, st);
+      return launch_g<T, 16>(q, k_cache, v_cache, cache_len, offset, o,
+                             scratch, b, s, h_kv, g_n, n_split, chunk, st);
     case 32:
-      return launch_g<T, 32>(q, k_cache, v_cache, cache_len, out, scratch, b,
-                             s, h_kv, g_n, n_split, chunk, st);
+      return launch_g<T, 32>(q, k_cache, v_cache, cache_len, offset, o,
+                             scratch, b, s, h_kv, g_n, n_split, chunk, st);
     case 64:
-      return launch_g<T, 64>(q, k_cache, v_cache, cache_len, out, scratch, b,
-                             s, h_kv, g_n, n_split, chunk, st);
+      return launch_g<T, 64>(q, k_cache, v_cache, cache_len, offset, o,
+                             scratch, b, s, h_kv, g_n, n_split, chunk, st);
     case 128:
-      return launch_g<T, 128>(q, k_cache, v_cache, cache_len, out, scratch,
-                              b, s, h_kv, g_n, n_split, chunk, st);
+      return launch_g<T, 128>(q, k_cache, v_cache, cache_len, offset, o,
+                              scratch, b, s, h_kv, g_n, n_split, chunk, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+template <typename T>
+int partial(const void* q, const void* k_cache, const void* v_cache,
+            const void* cache_len, void* acc, void* m, void* l,
+            void* scratch, int b, int s, int h_kv, int g_n, int d,
+            int n_split, int chunk, int offset, void* stream) {
+  if (acc == nullptr || m == nullptr || l == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return dispatch<T>(q, k_cache, v_cache, cache_len, offset,
+                     decode_split::Unnormalised{static_cast<float*>(acc),
+                                                static_cast<float*>(m),
+                                                static_cast<float*>(l)},
+                     scratch, b, s, h_kv, g_n, d, n_split, chunk, stream);
 }
 
 }  // namespace
@@ -140,8 +170,10 @@ extern "C" int decode_attention_f32(const void* q, const void* k_cache,
                                     void* scratch, int b, int s, int h_kv,
                                     int g_n, int d, int n_split, int chunk,
                                     void* stream) {
-  return dispatch<float>(q, k_cache, v_cache, cache_len, out, scratch, b, s,
-                         h_kv, g_n, d, n_split, chunk, stream);
+  return dispatch<float>(q, k_cache, v_cache, cache_len, 0,
+                         decode_split::Normalised<float>{
+                             static_cast<float*>(out)},
+                         scratch, b, s, h_kv, g_n, d, n_split, chunk, stream);
 }
 
 extern "C" int decode_attention_bf16(const void* q, const void* k_cache,
@@ -150,7 +182,30 @@ extern "C" int decode_attention_bf16(const void* q, const void* k_cache,
                                      void* scratch, int b, int s, int h_kv,
                                      int g_n, int d, int n_split, int chunk,
                                      void* stream) {
-  return dispatch<__nv_bfloat16>(q, k_cache, v_cache, cache_len, out,
-                                 scratch, b, s, h_kv, g_n, d, n_split, chunk,
-                                 stream);
+  return dispatch<__nv_bfloat16>(
+      q, k_cache, v_cache, cache_len, 0,
+      decode_split::Normalised<__nv_bfloat16>{
+          static_cast<__nv_bfloat16*>(out)},
+      scratch, b, s, h_kv, g_n, d, n_split, chunk, stream);
+}
+
+// The partial entry: acc (B, H_kv, g_n, d), m and l (B, H_kv, g_n), all f32,
+// of the shard holding positions [offset, offset + s).
+extern "C" int decode_attention_partial_f32(
+    const void* q, const void* k_cache, const void* v_cache,
+    const void* cache_len, void* acc, void* m, void* l, void* scratch, int b,
+    int s, int h_kv, int g_n, int d, int n_split, int chunk, int offset,
+    void* stream) {
+  return partial<float>(q, k_cache, v_cache, cache_len, acc, m, l, scratch, b,
+                        s, h_kv, g_n, d, n_split, chunk, offset, stream);
+}
+
+extern "C" int decode_attention_partial_bf16(
+    const void* q, const void* k_cache, const void* v_cache,
+    const void* cache_len, void* acc, void* m, void* l, void* scratch, int b,
+    int s, int h_kv, int g_n, int d, int n_split, int chunk, int offset,
+    void* stream) {
+  return partial<__nv_bfloat16>(q, k_cache, v_cache, cache_len, acc, m, l,
+                                scratch, b, s, h_kv, g_n, d, n_split, chunk,
+                                offset, stream);
 }

@@ -12,7 +12,11 @@
 // writes its partial (m, l, acc[G, D]) in f32 (log2 units) and
 // `merge_kernel` over (B, H_kv) rescales and sums them (the combine of
 // src/repro/distributed/decode_attn.py), rounding once to q's dtype.  A
-// length of 0 gives exact zeros.
+// length of 0 gives exact zeros.  Where the result goes is the caller's
+// `Out`: `Normalised` writes that output; `Unnormalised` (the dense
+// kernel's partial entry, one rank's shard of a split-K decode) writes the
+// f32 acc[G, D], m (natural-log units) and l instead, and -inf / 0 / 0 for
+// a row with no visible position.
 //
 // Inside a split, tiles of 8 KB of K and 8 KB of V (64 positions at bf16,
 // D=64) come into a two-slot ring of shared memory by 16-byte cp.async
@@ -83,13 +87,50 @@ __device__ __forceinline__ void unpack(const unsigned char* p, float* x,
   }
 }
 
-// The split body of block (b, h * n_gblk + gb, split).  q and out are the
-// (B, H_kv, g_n, D) query and output; `length` is the block's sequence
-// length, already clamped to [0, its positions].  G is the compile-time
-// width of a block's query group; heads g0 + g >= g_n are masked.
-template <typename T, int D, int G, typename Rows>
+// Where a result row goes.  A row is one (b, kv head, query) cell of the
+// (B, H_kv, g_n) grid; `col` one of its d output columns.  `empty` writes
+// a row with no visible position, `put` a row whose f32 statistics are
+// (acc, m in log2 units, l).
+template <typename T>
+struct Normalised {
+  T* out;                       // (B, H_kv, g_n, d) in q's dtype
+  __device__ __forceinline__ void empty(size_t row, int col, int d) const {
+    out[row * d + col] = from_f32<T>(0.f);
+  }
+  __device__ __forceinline__ void put(size_t row, int col, int d, float a,
+                                      float, float l) const {
+    out[row * d + col] = from_f32<T>(a / l);
+  }
+};
+
+struct Unnormalised {
+  float* acc;                   // (B, H_kv, g_n, d)
+  float* m;                     // (B, H_kv, g_n), natural-log units
+  float* l;                     // (B, H_kv, g_n)
+  __device__ __forceinline__ void empty(size_t row, int col, int d) const {
+    acc[row * d + col] = 0.f;
+    if (col == 0) {
+      m[row] = -INFINITY;
+      l[row] = 0.f;
+    }
+  }
+  __device__ __forceinline__ void put(size_t row, int col, int d, float a,
+                                      float mm, float ll) const {
+    acc[row * d + col] = a;
+    if (col == 0) {
+      m[row] = mm * 0.69314718055994531f;   // log2 units -> natural log
+      l[row] = ll;
+    }
+  }
+};
+
+// The split body of block (b, h * n_gblk + gb, split).  q is the (B, H_kv,
+// g_n, D) query; `length` is the block's sequence length, already clamped
+// to [0, its positions].  G is the compile-time width of a block's query
+// group; heads g0 + g >= g_n are masked.
+template <typename T, int D, int G, typename Rows, typename Out>
 __device__ __forceinline__ void split_body(
-    const T* __restrict__ q, int length, Rows& rows, T* __restrict__ out,
+    const T* __restrict__ q, int length, Rows& rows, const Out& o,
     float* __restrict__ part_acc, float* __restrict__ part_ml, int h_kv,
     int g_n, int n_gblk, int chunk, float scale_log2) {
   using Sh = Shape<T, D>;
@@ -114,7 +155,7 @@ __device__ __forceinline__ void split_body(
     // start inside the length); split 0 is empty only at length 0
     if (split == 0) {
       for (int i = threadIdx.x; i < n_g * D; i += kThreads) {
-        out[cell * D + i] = from_f32<T>(0.f);
+        o.empty(cell + i / D, i % D, D);
       }
     }
     return;
@@ -258,7 +299,7 @@ __device__ __forceinline__ void split_body(
       a = fmaf(warp_acc[(w * G + g) * D + i % D], wt, a);
     }
     if (direct) {
-      out[cell * D + i] = from_f32<T>(a / ll);
+      o.put(cell + g, i % D, D, a, mm, ll);
     } else {
       const size_t p = (static_cast<size_t>(b) * h_kv + h) * n_split + split;
       part_acc[(p * g_n + g0) * D + i] = a;
@@ -271,16 +312,17 @@ __device__ __forceinline__ void split_body(
 }
 
 // Merge kernel: block (b, h) combines the splits that start inside the
-// length; a row whose length fits in one split was written by split 0.
-// `limit` is the most positions a sequence has (S, or M*page).
-template <typename T>
+// length, clamp(lengths[b] - offset, 0, limit); a row whose length fits in
+// one split was written by split 0.  `limit` is the most positions a
+// sequence has (S, or M*page).
+template <typename Out>
 __global__ void __launch_bounds__(kThreads) merge_kernel(
-    const int* __restrict__ lengths, const float* __restrict__ part_acc,
-    const float* __restrict__ part_ml, T* __restrict__ out, int limit,
-    int h_kv, int g_n, int d, int n_split, int chunk) {
+    const int* __restrict__ lengths, int offset,
+    const float* __restrict__ part_acc, const float* __restrict__ part_ml,
+    Out o, int limit, int h_kv, int g_n, int d, int n_split, int chunk) {
   const int b = blockIdx.x;
   const int h = blockIdx.y;
-  const int length = max(0, min(lengths[b], limit));
+  const int length = max(0, min(lengths[b] - offset, limit));
   if (length <= chunk) return;
   const int n_used = min(n_split, (length + chunk - 1) / chunk);
   const size_t cell = (static_cast<size_t>(b) * h_kv + h);
@@ -297,7 +339,7 @@ __global__ void __launch_bounds__(kThreads) merge_kernel(
       ll = fmaf(part_ml[2 * (p + g) + 1], wt, ll);
       a = fmaf(part_acc[p * d + i], wt, a);
     }
-    out[cell * g_n * d + i] = from_f32<T>(a / ll);
+    o.put(cell * g_n + g, i % d, d, a, mm, ll);
   }
 }
 
@@ -313,14 +355,14 @@ struct Partials {
 
 // The merge pass after a split pass of more than one split; returns a
 // cudaError_t as int.
-template <typename T>
-int merge(const void* lengths, const Partials& parts, void* out, int b,
-          int limit, int h_kv, int g_n, int d, int n_split, int chunk,
-          cudaStream_t stream) {
+template <typename Out>
+int merge(const void* lengths, int offset, const Partials& parts,
+             const Out& o, int b, int limit, int h_kv, int g_n, int d,
+             int n_split, int chunk, cudaStream_t stream) {
   if (n_split == 1) return 0;
-  merge_kernel<T><<<dim3(b, h_kv), kThreads, 0, stream>>>(
-      static_cast<const int*>(lengths), parts.acc, parts.ml,
-      static_cast<T*>(out), limit, h_kv, g_n, d, n_split, chunk);
+  merge_kernel<Out><<<dim3(b, h_kv), kThreads, 0, stream>>>(
+      static_cast<const int*>(lengths), offset, parts.acc, parts.ml, o,
+      limit, h_kv, g_n, d, n_split, chunk);
   return static_cast<int>(cudaGetLastError());
 }
 

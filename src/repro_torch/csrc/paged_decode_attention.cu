@@ -110,8 +110,9 @@ __global__ void __launch_bounds__(kThreads) split_kernel(
                        tables + static_cast<size_t>(b) * max_pages, table_s,
                        static_cast<size_t>(h_kv) * D * sizeof(T), page};
   decode_split::split_body<T, D, G>(
-      q, max(0, min(lengths[b], max_pages * page)), rows, out, part_acc,
-      part_ml, h_kv, g_n, n_gblk, chunk, scale_log2);
+      q, max(0, min(lengths[b], max_pages * page)), rows,
+      decode_split::Normalised<T>{out}, part_acc, part_ml, h_kv, g_n, n_gblk,
+      chunk, scale_log2);
 }
 
 template <typename T, int D, int G>
@@ -130,8 +131,9 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
       decode_split::scale_log2(D));
   const int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  return decode_split::merge<T>(lengths, parts, out, b, max_pages * page,
-                                h_kv, g_n, D, n_split, chunk, stream);
+  return decode_split::merge(
+      lengths, 0, parts, decode_split::Normalised<T>{static_cast<T*>(out)}, b,
+      max_pages * page, h_kv, g_n, D, n_split, chunk, stream);
 }
 
 template <typename T, int D>

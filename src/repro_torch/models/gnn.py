@@ -16,9 +16,9 @@ readout drops.  Degree counts edges weighted by ``edge_mask``, while a
 masked edge's zero message still enters the max and min at its
 destination, as in the reference.
 
-The reference pins node and edge tensors to a mesh layout with
-``hints.constrain``; without a mesh those calls are no-ops, so the port
-leaves them out.  They come back with the port's distributed layer.
+Node and edge tensors are pinned to a mesh layout with
+``hints.constrain`` (``"gnn_nodes"``, ``"gnn_edges"``), as in the
+reference: DTensors are redistributed, plain tensors left alone.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.distributed import hints
 from repro_torch.models.embedding import (init_device, mlp_apply, mlp_init,
                                           segment_max, segment_min,
                                           segment_sum, take)
@@ -135,12 +136,14 @@ def forward(params: dict, x: torch.Tensor, edges: torch.Tensor,
         ones = ones * edge_mask
     degree = segment_sum(ones, dst, n_nodes)
 
-    h = mlp_apply(params["encoder"], x, final_act=True)
+    h = hints.constrain(mlp_apply(params["encoder"], x, final_act=True),
+                        "gnn_nodes")
     for lp in params["layers"]:
         h_src = take(h, src)
         h_dst = take(h, dst)
-        msg = mlp_apply(lp["msg"], torch.cat([h_src, h_dst], -1),
-                        final_act=True)
+        msg = hints.constrain(
+            mlp_apply(lp["msg"], torch.cat([h_src, h_dst], -1),
+                      final_act=True), "gnn_edges")
         if edge_mask is not None:
             msg = msg * edge_mask[:, None]
         aggs = _aggregate(msg, dst, n_nodes, degree, cfg)
@@ -150,6 +153,7 @@ def forward(params: dict, x: torch.Tensor, edges: torch.Tensor,
         h = h + upd
         h = h * torch.rsqrt(torch.mean(h * h, -1, keepdim=True) + 1e-6) \
             * lp["ln"]
+        h = hints.constrain(h, "gnn_nodes")
     if cfg.graph_level:
         if graph_ids is None or n_graphs is None:
             raise ValueError("a graph-level PNA needs graph_ids and n_graphs")

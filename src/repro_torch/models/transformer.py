@@ -14,6 +14,11 @@ Serving subset: ``forward`` (full sequence, optional KV collection),
 and ``quantize_for_serving`` (int8 weights).  Training: ``loss_fn`` and
 ``forward(..., remat=True)`` over a plain nested dict of parameters that
 require grad (``repro_torch.training.train_loop.init_state``).
+``abstract_params`` and ``abstract_cache`` build the same trees on the
+meta device (shapes and dtypes, no storage) for the cell programs and the
+dry-run.  ``forward``'s ``sp_spec`` and ``moe_ffn``'s ``"moe_dispatch"``
+hint redistribute DTensor activations (``repro_torch.distributed.hints``);
+on plain tensors they do nothing.
 JAX returns a new cache from the decode and extend entry points; the port
 writes into the cache IN PLACE and returns the same dict, so a step costs
 no copy of the cache.
@@ -40,6 +45,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
+from repro_torch.distributed import hints
 from repro_torch.kernels.paged_attention.ref import engine_ref_attn
 from repro_torch.models import common as cm
 
@@ -229,6 +235,13 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
                               "ln_f": ones(d), "layers": layers})
 
 
+def abstract_params(cfg: TransformerConfig,
+                    dtype=torch.float32) -> TransformerParams:
+    """``init_params``'s weights on the meta device: shapes and dtypes, no
+    storage (the reference's ``jax.eval_shape`` of its init)."""
+    return init_params(cfg, torch.Generator(), dtype, device="meta")
+
+
 def _quantize_int8_sliced(w: torch.Tensor, max_elems: int = 1 << 27) -> dict:
     """``cm.quantize_int8(w)`` computed over slices of axis 0 of at most
     ``max_elems`` elements (a layer of an expert stack at full width): the
@@ -317,15 +330,15 @@ def moe_ffn(x: torch.Tensor, lp: dict, cfg: TransformerConfig,
     # which token fills each (expert, capacity) slot: JAX scatters with
     # mode="drop"; here the dropped slots land in row E*C, sliced off
     tok_ids = torch.arange(T, device=x.device).expand(B, T)
-    inv = torch.full((B, E * C + 1), T, dtype=torch.long, device=x.device)
-    inv.scatter_(1, slot, tok_ids)
+    inv = torch.full((B, E * C + 1), T, dtype=torch.long,
+                     device=x.device).scatter(1, slot, tok_ids)
     inv = inv[:, :E * C]                                         # (B, E*C)
     # jnp.repeat(x, k, axis=1), by a broadcast: no host sync on the card
     x_slots = x[:, :, None].expand(B, S, k, d).reshape(B, T, d).to(
         compute_dtype)
     x_pad = F.pad(x_slots, (0, 0, 0, 1))                         # row T = 0
     hb = torch.gather(x_pad, 1, inv[..., None].expand(B, E * C, d))
-    hb = hb.reshape(B, E, C, d)
+    hb = hints.constrain(hb.reshape(B, E, C, d), "moe_dispatch")
 
     wu = cm.maybe_dequant(lp["w_up"], compute_dtype)
     wd = cm.maybe_dequant(lp["w_down"], compute_dtype)
@@ -335,7 +348,8 @@ def moe_ffn(x: torch.Tensor, lp: dict, cfg: TransformerConfig,
     else:
         wg = cm.maybe_dequant(lp["w_gate"], compute_dtype)
         act = cm.swiglu(torch.einsum("becd,edf->becf", hb, wg), up)
-    out = torch.einsum("becf,efd->becd", act, wd).reshape(B, E * C, d)
+    out = torch.einsum("becf,efd->becd", act, wd)
+    out = hints.constrain(out, "moe_dispatch").reshape(B, E * C, d)
 
     slot_safe = torch.clamp(slot, max=E * C - 1)
     y = torch.gather(out, 1, slot_safe[..., None].expand(B, T, d))  # (B, T, d)
@@ -423,7 +437,7 @@ def _head(params, x, compute_dtype):
 def forward(params: TransformerParams, tokens: torch.Tensor,
             cfg: TransformerConfig, compute_dtype=torch.bfloat16,
             collect_cache: bool = False, return_hidden: bool = False,
-            attn_impl=None, remat: bool = False):
+            attn_impl=None, remat: bool = False, sp_spec=None):
     """Full-sequence forward.  tokens: (B, S) int.
 
     Returns (logits, aux_loss), or (logits, aux_loss, cache) with
@@ -432,7 +446,10 @@ def forward(params: TransformerParams, tokens: torch.Tensor,
     the full-sequence attention op (module docstring).  ``remat``
     checkpoints each layer (training): its activations are recomputed in
     the backward pass, as ``jax.checkpoint`` of the layer does in JAX.
-    ``params`` may be a plain nested dict (the train state's)."""
+    ``sp_spec`` (a ``sharding.P``) sequence-shards the residual stream at
+    each layer's entry (Megatron-SP style activation sharding) when it is
+    a DTensor.  ``params`` may be a plain nested dict (the train
+    state's)."""
     B, S = tokens.shape
     embed = cm.maybe_dequant(params["embed"], compute_dtype)
     x = embed[tokens]
@@ -441,6 +458,7 @@ def forward(params: TransformerParams, tokens: torch.Tensor,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def layer_fn(x, aux, lp):
+        x = hints.constrain_to(x, sp_spec)
         h, k, v = _attn_full_seq(cm.rms_norm(x, lp["ln1"], cfg.norm_eps),
                                  lp, cfg, positions, compute_dtype, attn_impl)
         x = x + h
@@ -485,13 +503,14 @@ def prefill(params: TransformerParams, tokens: torch.Tensor,
 
 def loss_fn(params, tokens: torch.Tensor, labels: torch.Tensor,
             cfg: TransformerConfig, aux_weight: float = 0.01,
-            compute_dtype=torch.bfloat16, remat: bool = False) -> torch.Tensor:
+            compute_dtype=torch.bfloat16, remat: bool = False,
+            sp_spec=None) -> torch.Tensor:
     """Mean next-token cross entropy plus ``aux_weight`` times the MoE
     aux loss.  The padded vocabulary's logits are masked to -1e30 in
     float32.  Attention is the plain path, as in JAX: the flash kernel
-    has no backward.  JAX's ``sp_spec`` (a sequence-sharding hint) waits
-    for the port's distributed layer."""
-    logits, aux = forward(params, tokens, cfg, compute_dtype, remat=remat)
+    has no backward.  ``sp_spec`` goes to ``forward``."""
+    logits, aux = forward(params, tokens, cfg, compute_dtype, remat=remat,
+                          sp_spec=sp_spec)
     if cfg.padded_vocab != cfg.vocab_size:
         pad_mask = torch.arange(cfg.padded_vocab,
                                 device=logits.device) >= cfg.vocab_size
@@ -543,6 +562,14 @@ def make_cache(cfg: TransformerConfig, batch: int, s_max: int,
     shape = (cfg.n_layers, batch, s_max, cfg.n_kv_heads, cfg.d_head)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def abstract_cache(cfg: TransformerConfig, batch: int, s_max: int,
+                   dtype=torch.bfloat16) -> dict:
+    """``make_cache``'s tree on the meta device."""
+    shape = (cfg.n_layers, batch, s_max, cfg.n_kv_heads, cfg.d_head)
+    return {"k": torch.empty(shape, dtype=dtype, device="meta"),
+            "v": torch.empty(shape, dtype=dtype, device="meta")}
 
 
 def decode_step(params: TransformerParams, cache: dict, token: torch.Tensor,

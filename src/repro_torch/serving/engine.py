@@ -31,7 +31,12 @@ Hot path, as in the JAX engine:
   full-sequence attention -- prefill, the encoder (corpus and query
   embedding, rerank, safety screen) and the executors' greedy
   generation -- runs the flash attention kernel too; ``"ref"`` keeps the
-  einsum paths that mirror JAX.  ``fused_decode=
+  einsum paths that mirror JAX.  ``"splitk"`` decodes through the
+  distributed split-K attention (``repro_torch.distributed.decode_attn``)
+  on the engine's 1 x 1 host mesh -- its partial is the dense decode
+  kernel's partial entry on a CUDA device -- with the paged pool gathered
+  into a dense view; its full-sequence attention is the plain path, as
+  JAX's ``"splitk"`` computes prefill with einsums.  ``fused_decode=
   False`` keeps the pre-fusion path: argmax on the host, and the
   whole-cache copy JAX makes there counted in ``cache_copy_bytes``.
 * Iteratively retrieved context and chunked prompt prefill share one
@@ -65,7 +70,7 @@ from repro_torch.serving.request import Request, State
 from repro_torch.serving.telemetry import (NULL_TRACER, MetricsRegistry,
                                            stage_kind)
 
-ATTN_IMPLS = ("auto", "ref", "cuda")
+ATTN_IMPLS = ("auto", "ref", "cuda", "splitk")
 
 
 def bucket_len(n: int, floor: int = 8) -> int:
@@ -98,7 +103,7 @@ class EngineConfig:
     # decode attention: "auto" resolves at engine construction to the CUDA
     # kernels on a CUDA device and to the reference masked softmax on the
     # CPU
-    attn_impl: str = "auto"              # "auto" | "ref" | "cuda"
+    attn_impl: str = "auto"              # "auto" | "ref" | "cuda" | "splitk"
     attn_num_buffers: int = 2            # page-load pipelining depth (unused
                                          # by the first CUDA kernel)
     # paged KV cache + continuous batching
@@ -125,7 +130,7 @@ class EngineConfig:
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(
                 f"attn_impl={self.attn_impl!r} must be one of "
-                "'auto', 'ref', 'cuda'")
+                "'auto', 'ref', 'cuda', 'splitk'")
         if self.attn_num_buffers < 2:
             raise ValueError(
                 f"attn_num_buffers={self.attn_num_buffers} must be >= 2 "
@@ -298,11 +303,34 @@ class RAGEngine:
         keeps the model functions' built-in references."""
         if self.attn_impl == "ref":
             return None, None, None
+        if self.attn_impl == "splitk":
+            return self._splitk_attn_impls()
         from repro_torch.kernels.decode_attention.ops import decode_attention
         from repro_torch.kernels.flash_attention.ops import flash_attention
         from repro_torch.kernels.paged_attention.ops import (
             paged_decode_attention)
         return paged_decode_attention, decode_attention, flash_attention
+
+    def _splitk_attn_impls(self):
+        """Split-K decode attention over the 1 x 1 host mesh's ``model``
+        axis (one shard: no collective); full-sequence attention stays
+        plain."""
+        from repro_torch.distributed.decode_attn import (
+            make_distributed_decode_attn)
+        from repro_torch.launch.mesh import make_host_mesh
+        dense_attn = make_distributed_decode_attn(
+            make_host_mesh(), self.gen.cfg.q_per_kv)
+
+        def paged_attn(q, kp, vp, tables, cache_len):
+            # split-K shards the sequence axis of a dense view, so this
+            # adapter gathers it, as the reference's does
+            b, m = tables.shape
+            _, page, h_kv, d = kp.shape
+            kg = kp[tables].reshape(b, m * page, h_kv, d)
+            vg = vp[tables].reshape(b, m * page, h_kv, d)
+            return dense_attn(q, kg, vg, cache_len)
+
+        return paged_attn, dense_attn, None
 
     def has_executor(self, name: str) -> bool:
         return any(ex.name == name for ex in self.executors)

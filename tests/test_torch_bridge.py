@@ -58,6 +58,23 @@ def test_port_imports_with_jax_blocked():
     assert int(out.stdout.strip()) >= 25          # every module was loaded
 
 
+def test_port_has_every_module_of_the_reference():
+    """Every module of ``repro`` has its counterpart under the same name
+    in ``repro_torch``, but ``distributed/compat.py`` (it only picks JAX's
+    ``shard_map`` import) and the Pallas kernel files, whose counterparts
+    are the CUDA sources and their wrappers."""
+    ref = ROOT / "src" / "repro"
+    missing = []
+    for f in sorted(ref.rglob("*.py")):
+        rel = f.relative_to(ref)
+        if rel.name == "__init__.py" or rel.as_posix() in (
+                "distributed/compat.py",) or rel.parts[0] == "kernels":
+            continue
+        if not (PORT / rel).exists():
+            missing.append(rel.as_posix())
+    assert not missing, missing
+
+
 def test_no_source_line_imports_jax_or_repro():
     pattern = re.compile(
         r"^\s*(import jax|from jax|import repro\b|from repro\b|"
@@ -102,10 +119,12 @@ def test_engine_config_validation_matches_jax():
             jengine.EngineConfig(**kw)
         with pytest.raises(ValueError):
             tengine.EngineConfig(**kw)
-    # the kernel value differs: "pallas"/"splitk" in JAX, "cuda" here
+    # the kernel value differs: "pallas" in JAX, "cuda" here; "splitk" is
+    # in both
     with pytest.raises(ValueError, match="'cuda'"):
         tengine.EngineConfig(attn_impl="pallas")
     assert tengine.EngineConfig(attn_impl="cuda").attn_impl == "cuda"
+    assert tengine.EngineConfig(attn_impl="splitk").attn_impl == "splitk"
     assert tengine.EngineConfig(fused_decode=False).paged is False
 
 
