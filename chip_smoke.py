@@ -36,6 +36,15 @@ lines (and its seconds as a ``phase_seconds`` line), in order:
                flash also at those models' prefills and a few edges
                (ragged S, kv_len < S, D=128); the PQ scan at one serve
                search, through both entry points
+  decode_sync  the decode steps with no host read: one paged_decode_step
+               through the paged kernel and one dense decode_step through
+               the dense kernel, Granite-3.0-2B at serve's shape (8 slots,
+               s_max 1,024; a masked row whose table of zeros aliases a
+               live row's target, a row at its table's end), each run
+               under ``torch.cuda.set_sync_debug_mode("error")``, then
+               captured in a CUDA graph and replayed from the same bytes:
+               logits and caches bit-equal to the eager step, the dropped
+               rows' bytes unchanged; eager and replayed step times
   retrieve_scale  IVF-PQ search over a Wikipedia-sized index made on the
                card (21,015,324 vectors in 4,096 lists, 96-byte codes): 32
                queries through ``IVFPQBackend.search`` (one scan launch
@@ -205,10 +214,10 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def device_ms(fn, reps: int = TIMING_REPS) -> float:
-    """Device time of one ``fn()`` call: ``reps`` calls captured in one CUDA
-    graph, replayed between two CUDA events (host launch cost excluded).
-    Inputs stay resident in L2 across the replays."""
+def graph_of(fn, reps: int = 1):
+    """``fn()`` warmed up once on a side stream, then ``reps`` calls of it
+    captured in one CUDA graph: (graph, the last captured call's
+    output)."""
     import torch
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -218,7 +227,16 @@ def device_ms(fn, reps: int = TIMING_REPS) -> float:
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(reps):
-            fn()
+            out = fn()
+    return graph, out
+
+
+def device_ms(fn, reps: int = TIMING_REPS) -> float:
+    """Device time of one ``fn()`` call: ``reps`` calls captured in one CUDA
+    graph, replayed between two CUDA events (host launch cost excluded).
+    Inputs stay resident in L2 across the replays."""
+    import torch
+    graph, _ = graph_of(fn, reps)
     graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -1066,6 +1084,168 @@ def phase_kernels(engine) -> dict:
     return {"paged_decode_attention": pa, "pq_scan": pq,
             "decode_attention": dense, "flash_attention": flash,
             "decode_attention_partial": partial}
+
+
+#: the decode_sync phase, at serve's pool (8 slots of s_max 1,024 in pages
+#: of 16): row 6 is idle (write_mask False) with an idle slot's table of
+#: zeros and row 0's position, so its own clamped target is row 0's live
+#: target on page 0; row 7 steps at its table's end (pos == M * page ==
+#: s_max), which JAX drops.  The dense batch takes the same positions and
+#: mask (row 6 masked, row 7 at pos == S_max).
+SYNC_POS = [5, 1, 537, 1000, 300, 299, 5, 1024]
+SYNC_MASK = [True] * 6 + [False, True]
+SYNC_REPS = 20
+
+
+def _bits(t):
+    import torch
+    return t.view(torch.int16) if t.element_size() == 2 else t.view(
+        torch.int32)
+
+
+def check_step_sync(name: str, step, cache: dict, written) -> dict:
+    """One decode step ``step() -> logits`` that writes ``cache`` in place,
+    run eagerly under ``torch.cuda.set_sync_debug_mode("error")`` (a sync
+    raises) and then captured in a CUDA graph and replayed from the same
+    cache bytes: logits and cache bit-equal to the eager step's.  Every
+    byte outside ``written`` (a bool mask over the cache's leading dims:
+    the rows JAX writes) keeps its value, and every row inside it
+    changes.  Then eager steps and replays timed on CUDA events."""
+    import torch
+    before = {k: v.clone() for k, v in cache.items()}
+
+    def restore():
+        for k, v in cache.items():
+            v.copy_(before[k])
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager = step()
+        eager = eager.clone()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    after = {k: v.clone() for k, v in cache.items()}
+    nd = written.dim()
+    for k in cache:
+        changed = (_bits(after[k]) != _bits(before[k])).flatten(nd).any(-1)
+        if bool((changed & ~written).any()):
+            raise AssertionError(f"decode_sync {name}: the step changed "
+                                 f"{k} bytes that JAX leaves alone")
+        if not bool(changed[written].all()):
+            raise AssertionError(f"decode_sync {name}: a kept row of {k} "
+                                 "was not written")
+    restore()
+    graph, out = graph_of(step)
+    restore()
+    graph.replay()
+    torch.cuda.synchronize()
+    if not torch.equal(_bits(out), _bits(eager)):
+        raise AssertionError(f"decode_sync {name}: replayed logits differ "
+                             "from the eager step's")
+    for k in cache:
+        if not torch.equal(_bits(cache[k]), _bits(after[k])):
+            raise AssertionError(f"decode_sync {name}: the replayed step "
+                                 f"left other {k} bytes than the eager one")
+    # on CUDA events, launches included: an eager step is bound by them
+    eager_ms = cuda_ms(step, SYNC_REPS)
+    graph_ms = cuda_ms(graph.replay, SYNC_REPS)
+    del graph, out, before, after
+    return {"logits": list(eager.shape), "tol": "bit-equal",
+            "rows_written": int(written.sum()),
+            "cache_bytes": sum(v.numel() * v.element_size()
+                               for v in cache.values()),
+            "eager_ms": float(np.median(eager_ms)),
+            "eager_ms_range": [min(eager_ms), max(eager_ms)],
+            "graph_ms": float(np.median(graph_ms)),
+            "graph_ms_range": [min(graph_ms), max(graph_ms)],
+            "eager_over_graph": float(np.median(eager_ms)
+                                      / np.median(graph_ms))}
+
+
+def phase_decode_sync(engine) -> dict:
+    """The decode steps with no host read: Granite-3.0-2B at full width
+    (serve's generator) at serve's shape, one ``paged_decode_step``
+    through the paged kernel and one dense ``decode_step`` through the
+    dense kernel (``check_step_sync``).  Pool and cache are fresh, filled
+    with random bytes; the batch drops two rows (``SYNC_POS``)."""
+    import torch
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.paged_attention.ops import paged_decode_attention
+    from repro_torch.models import transformer as tr
+
+    gen = engine.gen
+    cfg = gen.cfg
+    n, s_max, page = (engine.cfg.decode_slots, engine.cfg.s_max,
+                      engine.cfg.page_size)
+    m = s_max // page
+    dev = engine.device
+    g = torch.Generator(device=dev).manual_seed(23)
+    rng = np.random.default_rng(23)
+    pos_h = np.asarray(SYNC_POS, np.int32)
+    mask_h = np.asarray(SYNC_MASK)
+    token = torch.tensor(rng.integers(0, cfg.vocab_size, n, dtype=np.int32),
+                         device=dev)
+    pos = torch.tensor(pos_h, device=dev)
+    mask = torch.tensor(mask_h, device=dev)
+    # every row but the idle one owns m pages; row 0's first page is page
+    # 0, which the idle row's table of zeros points at
+    pages = np.concatenate([[0], 1 + rng.permutation(n * m - 1)])
+    tables_h = np.zeros((n, m), np.int32)
+    live = [b for b in range(n) if mask_h[b]]
+    for i, b in enumerate(live):
+        tables_h[b] = pages[i * m:(i + 1) * m]
+    if tables_h[6].any() or mask_h[6] or pos_h[6] != pos_h[0] \
+            or tables_h[0, 0] != 0 or pos_h[7] != m * page:
+        raise AssertionError("decode_sync: the batch lost its drop cases")
+    tables = torch.tensor(tables_h, device=dev)
+
+    reset_launches()
+    pool = tr.make_paged_cache(cfg, n * m, page, device=dev)
+    for v in pool.values():
+        v.normal_(generator=g)
+    written = torch.zeros((cfg.n_layers, n * m, page), dtype=torch.bool)
+    for b in range(n):
+        if mask_h[b] and pos_h[b] // page < m:
+            written[:, tables_h[b, pos_h[b] // page], pos_h[b] % page] = True
+    paged = check_step_sync(
+        "paged", lambda: tr.paged_decode_step(
+            gen.params, pool, token, pos, tables, cfg,
+            attn_impl=paged_decode_attention, write_mask=mask)[0],
+        pool, written.to(dev))
+    del pool
+    torch.cuda.empty_cache()
+
+    cache = tr.make_cache(cfg, n, s_max, device=dev)
+    for v in cache.values():
+        v.normal_(generator=g)
+    written = torch.zeros((cfg.n_layers, n, s_max), dtype=torch.bool)
+    for b in range(n):
+        if mask_h[b] and pos_h[b] < s_max:
+            written[:, b, pos_h[b]] = True
+    dense = check_step_sync(
+        "dense", lambda: tr.decode_step(
+            gen.params, cache, token, pos, cfg, attn_impl=decode_attention,
+            write_mask=mask)[0],
+        cache, written.to(dev))
+    del cache
+    torch.cuda.empty_cache()
+    launches = read_launches()
+    # each step's kernel, once a layer: the checked step, the graph's
+    # warm-up and its capture, and the timed eager steps after their own
+    # warm-up (a replay calls no wrapper)
+    want = cfg.n_layers * (4 + SYNC_REPS)
+    for name in ("paged_decode_attention", "decode_attention"):
+        if launches[name] != want:
+            raise AssertionError(f"decode_sync: {name} launched "
+                                 f"{launches[name]} times, not {want}")
+    out = {"phase": "decode_sync", "model": cfg.name, "slots": n,
+           "s_max": s_max, "page": page, "pos": SYNC_POS,
+           "write_mask": SYNC_MASK, "paged": paged, "dense": dense,
+           "launches": launches, "nvidia_smi": nvidia_smi_line()}
+    emit(out)
+    return out
 
 
 def phase_serve(engine, questions) -> dict:
@@ -4113,6 +4293,7 @@ def main() -> int:
     timed("build", phase_build)
     engine, dense, questions = timed("setup", phase_setup)
     checks = timed("kernels", phase_kernels, engine)
+    timed("decode_sync", phase_decode_sync, engine)
     timed("retrieve_scale", phase_retrieve_scale)
     served = timed("serve", phase_serve, engine, questions)
     timed("trace", phase_trace, engine, questions)

@@ -17,6 +17,11 @@ reference's file names, with:
 * ``collectives`` -- count and bytes (of the collective's local result,
   as the reference counts an HLO op's result shape) by kind, as DTensor
   issued them (``CommDebugMode``), the backward included;
+* ``collective_sources`` -- the ten (kind, DTensor op, model line)
+  sources of the most collective bytes (``comm_counter``);
+* ``replicated_ops`` -- the ops that ran on the dry-run's own strategies
+  (``replicate_op``: those DTensor has none for, and ``_OVERRIDES``)
+  rather than DTensor's;
 * ``flops_global`` -- ``torch.utils.flop_counter`` over the DTensor ops,
   which sees each op at its global shapes: the whole mesh's FLOPs of the
   matmuls, convolutions and attention, not a rank's;
@@ -70,9 +75,36 @@ def _tensor_bytes(x) -> int:
     return 0
 
 
+_PKG = str(Path(__file__).resolve().parents[1])
+#: frames that carry a collective but are not where the model asked for it
+_PLUMBING = (str(Path(__file__).resolve()),
+             str(Path(_PKG, "distributed", "hints.py")))
+
+
+def _source() -> tuple[str, bool]:
+    """("file:line function", explicit) of the innermost frame of this
+    package that is not the dry-run or the hints (the model line whose
+    op or hint issued the collective being counted); ``explicit`` when a
+    ``DTensor.redistribute`` call (a hint) is on the stack."""
+    f, site, explicit = sys._getframe(2), "?", False
+    while f is not None:
+        name = f.f_code.co_filename
+        if f.f_code.co_name == "redistribute" and name.endswith("_api.py"):
+            explicit = True
+        if site == "?" and name.startswith(_PKG) and name not in _PLUMBING:
+            site = (f"{Path(name).relative_to(_PKG).as_posix()}:"
+                    f"{f.f_lineno} {f.f_code.co_name}")
+        f = f.f_back
+    return site, explicit
+
+
 def comm_counter():
     """A ``CommDebugMode`` that also sums each collective's result bytes
-    by kind (``.comm_bytes``)."""
+    by kind (``.comm_bytes``) and by source (``.by_source``: kind, the
+    DTensor op whose dispatch issued it -- ``redistribute`` for a hint --
+    and the model line, ``_source``), and keeps the names of the ops it
+    saw (``.ops``)."""
+    from torch.distributed.tensor import DTensor
     from torch.distributed.tensor.debug import CommDebugMode
     from torch.distributed.tensor.debug._comm_mode import (
         c10d_collective_ops)
@@ -81,33 +113,69 @@ def comm_counter():
         def __init__(self):
             super().__init__()
             self.comm_bytes = defaultdict(int)
+            self.by_source = defaultdict(lambda: [0, 0])
+            self.ops = set()
+            self._op = "?"
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.add(str(func))
+            if any(t is DTensor for t in types):
+                self._op = str(func)
             out = super().__torch_dispatch__(func, types, args, kwargs)
             if out is NotImplemented or isinstance(
                     func, torch._ops.HigherOrderOperator):
                 return out
             packet = func._overloadpacket
             if packet in self.comm_registry or packet in c10d_collective_ops:
-                self.comm_bytes[collective_kind(str(packet))] += \
-                    _tensor_bytes(out)
+                kind, n = collective_kind(str(packet)), _tensor_bytes(out)
+                self.comm_bytes[kind] += n
+                site, explicit = _source()
+                entry = self.by_source[
+                    (kind, "redistribute" if explicit else self._op, site)]
+                entry[0] += 1
+                entry[1] += n
             return out
 
     return CommBytes()
+
+
+def top_sources(comm, n: int = 10) -> list[dict]:
+    """The ``n`` (kind, op, model line) sources of the most collective
+    bytes."""
+    rows = sorted(comm.by_source.items(), key=lambda kv: -kv[1][1])[:n]
+    return [{"kind": k, "op": op, "site": site, "count": c, "bytes": b}
+            for (k, op, site), (c, b) in rows]
 
 
 _NO_STRATEGY = re.compile(r"Operator (\S+) does not have a sharding "
                           r"strategy registered")
 
 
-def replicate_op(name: str, keep_dims_but: int | None = None) -> None:
+def replicate_op(name: str, keep_dims_but: int | None = None,
+                 indexed: str | None = None) -> None:
     """Register for ``name`` (an aten op DTensor has no sharding strategy
     for, as ``aten.scatter_reduce.two``) the strategy of replicated inputs
     and outputs: its DTensor inputs are gathered whole first, and those
     collectives are counted with the rest.  With ``keep_dims_but`` (the
     position of the op's ``dim`` argument), inputs and output may also
-    share a shard on any other dim."""
-    from torch.distributed.tensor import Replicate, Shard
+    share a shard on any other dim.
+
+    ``indexed`` ("read" for a gather, "write" for an in-place scatter)
+    also lets the first input keep a shard on ``dim`` itself while the
+    other inputs are replicated: a write's result keeps that shard (each
+    shard applies the updates that fall in its range), a read's is a
+    ``Partial`` sum (each shard gives the rows it holds, zero elsewhere).
+    That is how XLA partitions a scatter or gather into an operand sharded
+    on the indexed dim; DTensor offers neither, since its local op would
+    take a global index for a local one.  The dry-run's tensors are meta,
+    so only shapes flow: the strategy serves to count the collectives of
+    the partitioned op, and no value is computed on it.  A read is offered
+    so only where it reads one position a slice along ``dim`` (the decode
+    step's read of the bytes it may write back, a loss's read of its
+    label's logit): its ``Partial`` is summed later, at a cost DTensor's
+    choice of strategy does not see, and only such a read keeps that cost
+    below gathering the input."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor._dtensor_spec import DTensorSpec
     from torch.distributed.tensor.experimental import register_sharding
     ns, op, overload = name.split(".")
@@ -125,22 +193,34 @@ def replicate_op(name: str, keep_dims_but: int | None = None) -> None:
             nd = len(args[0].tensor_meta.shape)
             dim = args[keep_dims_but] % nd
             out += [each(Shard(d)) for d in range(nd) if d != dim]
+            one = indexed == "write" or (
+                indexed == "read" and args[2].tensor_meta.shape[dim] == 1)
+            if one:
+                _, ins = each(Replicate())
+                ins[0] = Shard(dim)
+                res = Partial() if indexed == "read" else Shard(dim)
+                out.append(([res] * n_out, ins))
         return out
 
 
 #: ops whose DTensor strategy fails in this torch on the cells' shapes:
 #: ``gather`` along a sharded dim (a mask buffer of the index's shape
-#: applied to a tensor of one dim less) and ``scatter`` of sharded indices
-#: into a replicated buffer.  Each gets the strategy of ``replicate_op``.
-_OVERRIDES = (("aten.gather.default", 1), ("aten.scatter.src", None))
+#: applied to a tensor of one dim less), ``scatter`` of sharded indices
+#: into a replicated buffer, and the decode step's in-place ``scatter_``
+#: into the cache (sharded on its sequence dim) that no DTensor strategy
+#: keeps in place.  Each gets the strategy of ``replicate_op``; gather and
+#: scatter_ may keep a shard on the indexed dim.
+_OVERRIDES = (("aten.gather.default", 1, "read"),
+              ("aten.scatter.src", None, None),
+              ("aten.scatter_.src", 1, "write"))
 _overridden = False
 
 
 def override_strategies() -> None:
     global _overridden
     if not _overridden:
-        for name, dim_arg in _OVERRIDES:
-            replicate_op(name, dim_arg)
+        for name, dim_arg, indexed in _OVERRIDES:
+            replicate_op(name, dim_arg, indexed)
         _overridden = True
 
 
@@ -228,7 +308,8 @@ def run_cell(arch, shape, mesh, mesh_name: str, out_dir: Path,
                     raise
                 replicate_op(m.group(1))
                 replicated.append(m.group(1))
-        rec["replicated_ops"] = replicated
+        rec["replicated_ops"] = replicated + [
+            name for name, _, _ in _OVERRIDES if name in comm.ops]
         counts = defaultdict(int)
         for op, n in comm.get_comm_counts().items():
             counts[collective_kind(str(op))] += n
@@ -237,7 +318,7 @@ def run_cell(arch, shape, mesh, mesh_name: str, out_dir: Path,
         coll["total_bytes"] = sum(v["bytes"] for v in coll.values())
         rec.update({"ok": True, "flops_global": float(
             flops.get_total_flops()), "memory": memory,
-            "collectives": coll})
+            "collectives": coll, "collective_sources": top_sources(comm)})
     except Exception as e:
         rec.update({"ok": False, "error": f"{type(e).__name__}: {e}"[:2000],
                     "traceback": traceback.format_exc()[-2000:]})

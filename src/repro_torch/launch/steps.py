@@ -25,7 +25,7 @@ from repro_torch.configs.base import ArchSpec, ShapeSpec
 from repro_torch.distributed import sharding as sh
 from repro_torch.distributed.hints import sharding_hints
 from repro_torch.distributed.sharding import P
-from repro_torch.launch.mesh import all_axes, dp_axes
+from repro_torch.launch.mesh import all_axes, axis_size, dp_axes
 from repro_torch.models import gnn, recsys
 from repro_torch.models import transformer as tr
 from repro_torch.retrieval.exact import top_k
@@ -91,6 +91,23 @@ def _lm_cfg(arch: ArchSpec, shape: ShapeSpec) -> tr.TransformerConfig:
     return cfg
 
 
+def _head_hints(cfg: tr.TransformerConfig, mesh, bx, seq_len: int) -> dict:
+    """The ``"q_proj"`` / ``"kv_proj"`` hints of ``tr._qkv`` for heads
+    that do not divide the "model" axis.  DTensor cannot view such a
+    projection, sharded on its features over "model", as (heads, d_head),
+    nor, in the backward, the repeated KV heads' gradient as (H_kv,
+    q_per_kv) or the output projection's input gradient as heads; XLA
+    tiles them with replication instead.  Here they are
+    sharded on the sequence over "model" (replicated there when the
+    sequence does not divide either, as a decode step's one position); a
+    head count that divides the axis gets no hint.  The spec names the
+    (batch, sequence) dims only, so it fits the projection and the heads."""
+    m = axis_size(mesh, "model")
+    spec = P(bx, "model" if seq_len % m == 0 else None)
+    return {"q_proj": spec if cfg.n_heads % m else None,
+            "kv_proj": spec if cfg.n_kv_heads % m else None}
+
+
 def _serving_params_abs(cfg) -> dict:
     return tr.quantize_for_serving(tr.abstract_params(cfg)).tree()
 
@@ -120,6 +137,8 @@ def build_lm_cell(arch: ArchSpec, shape: ShapeSpec, mesh,
                              "microbatches")
         bx = sh.divisible_axes(B // mb, dp, mesh)
         moe_spec = P(bx, "model", None, None)
+        step_hints = {"moe_dispatch": moe_spec,
+                      **_head_hints(cfg, mesh, bx, S)}
 
         def loss(p, batch):
             return tr.loss_fn(p, batch["tokens"], batch["labels"], cfg,
@@ -142,7 +161,7 @@ def build_lm_cell(arch: ArchSpec, shape: ShapeSpec, mesh,
             return total / mb, tree_map(lambda g: g / mb, acc)
 
         return CellProgram(name, _train_step(accumulated, opt_cfg,
-                                             {"moe_dispatch": moe_spec}),
+                                             step_hints),
                            (state_abs, batch_abs),
                            (_state_spec(pspec), batch_spec),
                            (_state_spec(pspec), _METRICS_SPEC),
@@ -155,9 +174,10 @@ def build_lm_cell(arch: ArchSpec, shape: ShapeSpec, mesh,
 
     if shape.step == "prefill":
         tokens_abs = _sds((B, S), torch.int32)
+        step_hints = _head_hints(cfg, mesh, bx, S)
 
         def step(params, tokens):
-            with sharding_hints(moe_dispatch=moe_spec):
+            with sharding_hints(moe_dispatch=moe_spec, **step_hints):
                 return tr.prefill(params, tokens, cfg)
 
         cache_abs = tr.abstract_cache(cfg, B, S)
@@ -170,9 +190,10 @@ def build_lm_cell(arch: ArchSpec, shape: ShapeSpec, mesh,
         cache_abs = tr.abstract_cache(cfg, B, S)
         cache_spec = sh.lm_cache_specs(cache_abs, mesh)
         io = sh.lm_decode_io_specs(mesh, B)
+        step_hints = _head_hints(cfg, mesh, bx, 1)
 
         def step(params, cache, token, pos):
-            with sharding_hints(moe_dispatch=moe_spec):
+            with sharding_hints(moe_dispatch=moe_spec, **step_hints):
                 return tr.decode_step(params, cache, token, pos, cfg)
 
         return CellProgram(
@@ -361,6 +382,10 @@ def build_recsys_cell(arch: ArchSpec, shape: ShapeSpec, mesh,
         return P(bx, *([None] * (len(leaf.shape) - 1)))
 
     batch_spec = {k: batch_spec_of(k, v) for k, v in batch_abs.items()}
+    # xDeepFM's CIN input sharded as its rows (the batch, or the candidates)
+    n_rows = shape.dims["n_candidates" if shape.step == "score" else "batch"]
+    cell_hints = {"cin_in": P(sh.divisible_axes(n_rows, ax, mesh), None,
+                              None)}
 
     if shape.step == "train":
         state_abs = {"params": params_abs, "opt": init_opt_state(params_abs)}
@@ -368,7 +393,8 @@ def build_recsys_cell(arch: ArchSpec, shape: ShapeSpec, mesh,
         def loss(p, batch):
             return ops["loss"](p, batch, cfg)
 
-        return CellProgram(name, _train_step(value_and_grad(loss), opt_cfg),
+        return CellProgram(name, _train_step(value_and_grad(loss), opt_cfg,
+                                             cell_hints),
                            (state_abs, batch_abs),
                            (_state_spec(pspec), batch_spec),
                            (_state_spec(pspec), _METRICS_SPEC),
@@ -376,7 +402,8 @@ def build_recsys_cell(arch: ArchSpec, shape: ShapeSpec, mesh,
 
     if shape.step == "forward":
         def step(params, batch):
-            return ops["fwd"](params, batch, cfg)
+            with sharding_hints(**cell_hints):
+                return ops["fwd"](params, batch, cfg)
 
         with torch.no_grad():
             out_abs = step(params_abs, batch_abs)
@@ -388,7 +415,8 @@ def build_recsys_cell(arch: ArchSpec, shape: ShapeSpec, mesh,
 
     if shape.step == "score":
         def step(params, batch):
-            return ops["score"](params, batch, cfg)
+            with sharding_hints(**cell_hints):
+                return ops["score"](params, batch, cfg)
 
         return CellProgram(name, step, (params_abs, batch_abs),
                            (pspec, batch_spec), [P(), P()])

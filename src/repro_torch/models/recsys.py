@@ -23,6 +23,7 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.distributed import hints
 from repro_torch.models.common import trunc_normal
 from repro_torch.models.embedding import (StackedTables, embedding_bag,
                                           init_device, mlp_apply, mlp_init,
@@ -253,7 +254,10 @@ def xdeepfm_init(generator: torch.Generator, cfg: XDeepFMConfig,
 def xdeepfm_forward(params: dict, sparse: torch.Tensor,
                     cfg: XDeepFMConfig) -> torch.Tensor:
     """sparse: (B, n_sparse) -> (B,) logits."""
-    x0 = cfg.tables().lookup(params["tables"], sparse)        # (B, m, D)
+    # the "cin_in" hint shards a DTensor lookup as its rows: the CIN's
+    # einsums on any other placement cost DTensor minutes to plan
+    x0 = hints.constrain(cfg.tables().lookup(params["tables"], sparse),
+                         "cin_in")                            # (B, m, D)
     # CIN: x_{k} = W_k . (x_{k-1} (outer) x_0), feature-map-wise
     xs, pooled = x0, []
     for w in params["cin"]:

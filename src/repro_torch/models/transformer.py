@@ -16,9 +16,10 @@ and ``quantize_for_serving`` (int8 weights).  Training: ``loss_fn`` and
 require grad (``repro_torch.training.train_loop.init_state``).
 ``abstract_params`` and ``abstract_cache`` build the same trees on the
 meta device (shapes and dtypes, no storage) for the cell programs and the
-dry-run.  ``forward``'s ``sp_spec`` and ``moe_ffn``'s ``"moe_dispatch"``
-hint redistribute DTensor activations (``repro_torch.distributed.hints``);
-on plain tensors they do nothing.
+dry-run.  ``forward``'s ``sp_spec``, ``moe_ffn``'s ``"moe_dispatch"`` hint
+and the ``"q_proj"`` / ``"kv_proj"`` hints of the attention projections
+redistribute DTensor activations (``repro_torch.distributed.hints``); on
+plain tensors they do nothing.
 JAX returns a new cache from the decode and extend entry points; the port
 writes into the cache IN PLACE and returns the same dict, so a step costs
 no copy of the cache.
@@ -384,9 +385,15 @@ def _qkv(x, lp, cfg, positions, compute_dtype):
     wk = cm.maybe_dequant(lp["wk"], compute_dtype)
     wv = cm.maybe_dequant(lp["wv"], compute_dtype)
     xc = x.to(compute_dtype)
-    q = (xc @ wq).reshape(B, S, cfg.n_heads, cfg.d_head)
-    k = (xc @ wk).reshape(B, S, cfg.n_kv_heads, cfg.d_head)
-    v = (xc @ wv).reshape(B, S, cfg.n_kv_heads, cfg.d_head)
+    # the "q_proj" / "kv_proj" hints reshard a DTensor projection whose
+    # heads do not divide the mesh's "model" axis before its view as heads
+    q_spec, kv_spec = hints.hint("q_proj"), hints.hint("kv_proj")
+    q = hints.constrain_to(xc @ wq, q_spec).reshape(
+        B, S, cfg.n_heads, cfg.d_head)
+    k = hints.constrain_to(xc @ wk, kv_spec).reshape(
+        B, S, cfg.n_kv_heads, cfg.d_head)
+    v = hints.constrain_to(xc @ wv, kv_spec).reshape(
+        B, S, cfg.n_kv_heads, cfg.d_head)
     q = cm.apply_rope(q, positions, cfg.rope_theta, cfg.rotary_frac)
     k = cm.apply_rope(k, positions, cfg.rope_theta, cfg.rotary_frac)
     return q, k, v
@@ -409,8 +416,10 @@ def _attn_full_seq(x, lp, cfg, positions, compute_dtype, attn_impl=None):
         wo = cm.maybe_dequant(lp["wo"], compute_dtype)
         out = out.reshape(B, S, cfg.n_heads * cfg.d_head) @ wo
         return out.to(x.dtype), k, v
-    kr = cm.repeat_kv(k, cfg.q_per_kv)
-    vr = cm.repeat_kv(v, cfg.q_per_kv)
+    # the backward of repeat_kv views the repeated heads' gradient as
+    # (H_kv, q_per_kv): "kv_proj" reshards it first, as it does forward
+    kr = hints.constrain(cm.repeat_kv(k, cfg.q_per_kv), "kv_proj")
+    vr = hints.constrain(cm.repeat_kv(v, cfg.q_per_kv), "kv_proj")
     if not cfg.causal:
         scale = 1.0 / math.sqrt(cfg.d_head)
         scores = torch.einsum("bqhd,bkhd->bhqk", q, kr).float() * scale
@@ -421,7 +430,9 @@ def _attn_full_seq(x, lp, cfg, positions, compute_dtype, attn_impl=None):
     else:
         out = cm.naive_causal_attention(q, kr, vr, window)
     wo = cm.maybe_dequant(lp["wo"], compute_dtype)
-    out = out.reshape(B, S, cfg.n_heads * cfg.d_head) @ wo
+    # and the backward of this reshape views the gradient as heads
+    out = hints.constrain(out.reshape(B, S, cfg.n_heads * cfg.d_head),
+                          "q_proj") @ wo
     return out.to(x.dtype), k, v
 
 
@@ -551,8 +562,10 @@ def check_ids(tokens, cfg: TransformerConfig) -> None:
 #
 # Layout: {"k","v"}: (L, B, S_max, H_kv, D), one S_max-wide row per
 # sequence.  JAX drops out-of-bounds scatter rows (mode="drop"); PyTorch has
-# no drop mode and an out-of-bounds index on CUDA is a device-side assert,
-# so the port computes the valid rows first and writes only those.
+# no drop mode and an out-of-bounds index on CUDA is a device-side assert.
+# ``decode_step`` keeps its indices in bounds on the device (no host read,
+# so a step can be captured in a CUDA graph); ``chunk_extend`` takes host
+# ints and writes only the rows JAX keeps.
 
 def make_cache(cfg: TransformerConfig, batch: int, s_max: int,
                dtype=torch.bfloat16, device="cuda") -> dict:
@@ -584,7 +597,11 @@ def decode_step(params: TransformerParams, cache: dict, token: torch.Tensor,
     (JAX drops it out of bounds) or with ``write_mask`` False is not
     written.  JAX's engine writes every row and then merges the old cache
     back into the rows that are not stepping; the mask gives that merged
-    cache without the merge.  The cache is updated in place.
+    cache without the merge.  The cache is updated in place, with no host
+    read: row b owns its own S_max positions, so it writes at position
+    ``min(pos, S_max - 1)`` its new K/V if kept and the bytes already there
+    if dropped (a gather and a scatter along the sequence); no two rows
+    share an index.
 
     ``attn_impl(q, k_cache, v_cache, cache_len) -> (B, 1, H, D)`` gets the
     layer's post-write (B, S_max, H_kv, D) caches; the default repeats KV
@@ -597,11 +614,12 @@ def decode_step(params: TransformerParams, cache: dict, token: torch.Tensor,
     embed = cm.maybe_dequant(params["embed"], compute_dtype)
     x = embed[token][:, None, :]                                  # (B, 1, d)
     pos_l = pos.long()
-    valid = pos_l < s_max
+    keep = pos_l < s_max
     if write_mask is not None:
-        valid = valid & write_mask.to(valid.device)
-    rows = torch.nonzero(valid)[:, 0]          # one host sync, for all layers
-    flat = rows * s_max + pos_l[rows]
+        keep = keep & write_mask.to(keep.device)
+    at = torch.clamp(pos_l, max=s_max - 1)[:, None, None, None].expand(
+        B, 1, h_kv, d)
+    keep = keep[:, None, None, None]
     attn = attn_impl
     if attn is None:
         def attn(q, kc, vc, cache_len):
@@ -615,10 +633,9 @@ def decode_step(params: TransformerParams, cache: dict, token: torch.Tensor,
         kc, vc = cache["k"][i], cache["v"][i]          # (B, S_max, H_kv, D)
         xn = cm.rms_norm(x, lp["ln1"], cfg.norm_eps)
         q, k_new, v_new = _qkv(xn, lp, cfg, pos[:, None], compute_dtype)
-        kc.view(B * s_max, h_kv, d).index_copy_(
-            0, flat, k_new[rows, 0].to(kc.dtype))
-        vc.view(B * s_max, h_kv, d).index_copy_(
-            0, flat, v_new[rows, 0].to(vc.dtype))
+        for c, new in ((kc, k_new), (vc, v_new)):
+            c.scatter_(1, at, torch.where(keep, new.to(c.dtype),
+                                          c.gather(1, at)))
         # JAX attends over the cache cast to the compute dtype
         out = attn(q, kc.to(compute_dtype), vc.to(compute_dtype), cache_len)
         wo = cm.maybe_dequant(lp["wo"], compute_dtype)
@@ -724,8 +741,10 @@ def chunk_extend(params: TransformerParams, cache: dict, slot: int,
 # Physical layout: {"k","v"}: (L, n_pages, page, H_kv, D).  Position p of
 # sequence b lives at physical row block_tables[b, p // page] * page +
 # p % page.  JAX drops out-of-bounds scatter rows (mode="drop"); PyTorch has
-# no drop mode and an out-of-bounds index on CUDA is a device-side assert,
-# so the port computes the valid rows first and writes only those.
+# no drop mode and an out-of-bounds index on CUDA is a device-side assert.
+# ``paged_decode_step`` keeps its indices in bounds on the device (no host
+# read); ``paged_chunk_extend`` takes host ints and writes only the rows JAX
+# keeps.
 
 def make_paged_cache(cfg: TransformerConfig, n_pages: int, page_size: int,
                      dtype=torch.bfloat16, device="cuda") -> dict:
@@ -748,7 +767,13 @@ def paged_decode_step(params: TransformerParams, cache: dict,
     block_tables: (B, M) int32.  The new token's K/V goes to physical row
     ``block_tables[b, pos//page]*page + pos%page``; rows with
     ``write_mask`` False, or whose position lies past the table, are not
-    written (JAX drops them out of bounds).  The pool is updated in place.
+    written (JAX drops them out of bounds).  The pool is updated in place,
+    with no host read and no spare row: a dropped row repeats the write of
+    the first kept row (same index, same bytes, so the duplicate index is
+    deterministic), and when no row is kept every row writes back the
+    bytes at row 0's target.  A dropped row's own clamped target may lie
+    in a live sequence's page (an idle slot's table is zeros), which is
+    why it is not used.
 
     ``attn_impl(q, k_pages, v_pages, block_tables, cache_len)`` is
     block-table-native: it gets the post-scatter pool (P, page, H_kv, D)
@@ -764,11 +789,14 @@ def paged_decode_step(params: TransformerParams, cache: dict,
     phys = torch.gather(block_tables.long(), 1,
                         torch.clamp(page_log, max=M - 1)[:, None])[:, 0]
     flat = phys * page + pos_l % page
-    valid = page_log < M
+    keep = page_log < M
     if write_mask is not None:
-        valid = valid & write_mask.to(valid.device)
-    rows = torch.nonzero(valid)[:, 0]          # one host sync, for all layers
-    flat = flat[rows]
+        keep = keep & write_mask.to(keep.device)
+    # each row's source row: itself if kept, else the first kept row (row
+    # 0 when none is); ``keep`` becomes "some row is kept", for every row
+    src = torch.where(keep, torch.arange(B, device=keep.device),
+                      torch.argmax(keep.to(torch.uint8)))
+    flat, keep = flat[src], keep[src][:, None, None]
     attn = attn_impl
     if attn is None:
         def attn(q, kp, vp, tables, cache_len):
@@ -781,10 +809,10 @@ def paged_decode_step(params: TransformerParams, cache: dict,
         kc, vc = cache["k"][i], cache["v"][i]          # (P, page, H_kv, D)
         xn = cm.rms_norm(x, lp["ln1"], cfg.norm_eps)
         q, k_new, v_new = _qkv(xn, lp, cfg, pos[:, None], compute_dtype)
-        kf = kc.view(P * page, cfg.n_kv_heads, cfg.d_head)
-        vf = vc.view(P * page, cfg.n_kv_heads, cfg.d_head)
-        kf.index_copy_(0, flat, k_new[rows, 0].to(kf.dtype))
-        vf.index_copy_(0, flat, v_new[rows, 0].to(vf.dtype))
+        for c, new in ((kc, k_new), (vc, v_new)):
+            f = c.view(P * page, cfg.n_kv_heads, cfg.d_head)
+            f.index_copy_(0, flat, torch.where(keep, new[src, 0].to(f.dtype),
+                                               f[flat]))
         # JAX attends over the pool cast to the compute dtype
         out = attn(q, kc.to(compute_dtype), vc.to(compute_dtype),
                    block_tables, cache_len)
