@@ -692,11 +692,14 @@ def check_flash_attention() -> dict:
     generator's prefill (B=1, S=1,024, H=32, H_kv=8, D=64, bf16, causal),
     the encoder's batch (B=32, S=256, H=12, D=64, f32, full), and the
     1,024-token prefills of Moonlight-16B-A3B (H=16, H_kv=16, D=128),
-    Minitron-8B (32, 8, 128) and ChatGLM3-6B (32, 2, 128), each timed warm
-    and cold in L2; then a few edges (ragged S, kv_len < S, D=128) against
-    the plain version.  One ``scaled_dot_product_attention`` call on the
-    same inputs is timed as a yardstick (``library_ms``); the port never
-    calls it."""
+    Minitron-8B (32, 8, 128) and ChatGLM3-6B (32, 2, 128), and an
+    8,192-token prefill at Minitron's heads, each timed warm and cold in
+    L2; then a few edges (ragged S, kv_len < S, D=128, several sequences,
+    a K/V ring that wraps) against the plain version.  At S = 8,192 the
+    plain version runs one KV group at a time (the (S, S) f32 scores of
+    all 32 heads would take 8.6 GB), and its time is that of the eight
+    calls.  One ``scaled_dot_product_attention`` call on the same inputs is
+    timed as a yardstick (``library_ms``); the port never calls it."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa
@@ -707,7 +710,9 @@ def check_flash_attention() -> dict:
               "serve_moe": (1, 1024, 16, 16, 128, torch.bfloat16, True,
                             2e-2),
               "minitron": (1, 1024, 32, 8, 128, torch.bfloat16, True, 2e-2),
-              "chatglm3": (1, 1024, 32, 2, 128, torch.bfloat16, True, 2e-2)}
+              "chatglm3": (1, 1024, 32, 2, 128, torch.bfloat16, True, 2e-2),
+              "minitron_8k": (1, 8192, 32, 8, 128, torch.bfloat16, True,
+                              2e-2)}
     rng = np.random.default_rng(3)
     out = {"tol_reason": "kernel and plain version both keep f32 softmax "
                          "statistics and round the f32 result once; they "
@@ -718,15 +723,28 @@ def check_flash_attention() -> dict:
                          device="cuda")
         k, v = (torch.tensor(rng.standard_normal((b, s, h_kv, d)),
                              dtype=dtype, device="cuda") for _ in range(2))
+        # the plain version a KV group at a time where all heads' scores
+        # would not fit
+        g = h // h_kv
+        heads = ([(slice(None), slice(None))] if s <= 4096 else
+                 [(slice(j * g, (j + 1) * g), slice(j, j + 1))
+                  for j in range(h_kv)])
+
+        def plain():
+            return [flash_attention_ref(q[:, :, qh], k[:, :, kh],
+                                        v[:, :, kh], causal)
+                    for qh, kh in heads]
         got = fa.flash_attention_cuda(q, k, v, causal)
-        want = flash_attention_ref(q, k, v, causal)
+        err = max(float((got[:, :, qh].float() - want.float()).abs().max())
+                  for (qh, _), want in zip(heads, plain()))
         torch.cuda.synchronize()
-        err = float((got.float() - want.float()).abs().max())
         if not err <= tol:
             raise AssertionError(f"flash attention {name}: max abs err "
                                  f"{err} > {tol}")
-        ms = device_ms(lambda: fa.flash_attention_cuda(q, k, v, causal))
-        plain_ms = device_ms(lambda: flash_attention_ref(q, k, v, causal))
+        reps = TIMING_REPS if len(heads) == 1 else 3
+        ms = device_ms(lambda: fa.flash_attention_cuda(q, k, v, causal),
+                       reps)
+        plain_ms = device_ms(plain, reps)
         # the library call on (B, H, S, D) views of the same tensors
         qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
 
@@ -734,9 +752,11 @@ def check_flash_attention() -> dict:
             return F.scaled_dot_product_attention(qs, ks, vs,
                                                   is_causal=causal,
                                                   enable_gqa=True)
+        # the library's output against the kernel's (both within a bf16
+        # step of the plain version where it was compared above)
         lib_err = float((library().transpose(1, 2).float()
-                         - want.float()).abs().max())
-        library_ms = device_ms(library)
+                         - got.float()).abs().max())
+        library_ms = device_ms(library, reps)
         # bytes: q, k, v read once, the output written once; operations:
         # 4*D (QK^T and PV) per visible query-key pair and query head
         size = torch.finfo(dtype).bits // 8
@@ -747,14 +767,21 @@ def check_flash_attention() -> dict:
         out[name] = {"shape": [b, s, h, h_kv, d], "dtype": str(dtype),
                      "causal": causal, "max_abs_err": err, "tol": tol,
                      "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                     "library_max_abs_err": lib_err, "bound_ms": bound_ms,
+                     "library_vs_kernel_max_abs_err": lib_err,
+                     "bound_ms": bound_ms,
                      "bound_by": bound_by,
                      "cold_ms": device_ms_cold(
-                         lambda: fa.flash_attention_cuda(q, k, v, causal)),
-                     "library_cold_ms": device_ms_cold(library)}
+                         lambda: fa.flash_attention_cuda(q, k, v, causal),
+                         min(reps, 20)),
+                     "library_cold_ms": device_ms_cold(library,
+                                                       min(reps, 20))}
     # edges: (B, S, H, H_kv, D, dtype, causal, kv_len, tol)
     edges = [(2, 200, 8, 2, 64, torch.bfloat16, True, 131, 2e-2),
              (1, 77, 4, 4, 128, torch.bfloat16, False, 77, 2e-2),
+             (1, 8, 4, 2, 128, torch.bfloat16, True, 8, 2e-2),
+             (4, 300, 8, 2, 128, torch.bfloat16, True, 300, 2e-2),
+             (2, 300, 8, 2, 128, torch.bfloat16, False, 171, 2e-2),
+             (1, 2048, 4, 1, 64, torch.bfloat16, True, 2048, 2e-2),
              (3, 65, 12, 12, 64, torch.float32, False, 40, 1e-5),
              (1, 130, 8, 2, 128, torch.float32, True, 130, 1e-5)]
     out["edges"] = []

@@ -1,7 +1,8 @@
 // Helpers shared by the port's CUDA kernels for Hopper (sm_90a): f32
 // conversions, 16-byte cp.async copies from global to shared memory (one
-// chunk, or whole tiles of rows), and the opt-in to more than 48 KB of
-// dynamic shared memory.
+// chunk, or whole tiles of rows), mbarriers and the bulk copies of the TMA
+// engine that complete them, and the opt-in to more than 48 KB of dynamic
+// shared memory.
 
 #pragma once
 
@@ -76,6 +77,57 @@ struct TileCopy {
     }
   }
 };
+
+// An mbarrier whose phase completes after `count` arrivals (and the bytes
+// of copy they announce).  One thread initialises the block's barriers and
+// then calls fence_barrier_init(); a block barrier precedes any use.
+__device__ __forceinline__ void barrier_init(uint64_t* bar, int count = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival on the barrier that also announces `bytes` of copies (TMA)
+// which must complete before its phase does.
+__device__ __forceinline__ void barrier_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// One arrival on the barrier.
+__device__ __forceinline__ void barrier_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// One bulk copy (the TMA engine) of `bytes` contiguous bytes, a multiple of
+// 16 at 16-byte aligned addresses, which completes the barrier's phase.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          int bytes, uint64_t* bar) {
+  barrier_expect_tx(bar, bytes);
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Wait for the completion of the barrier's phase of this parity.
+__device__ __forceinline__ void barrier_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n .reg .pred done;\n WAIT_%=:\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      " @!done bra WAIT_%=;\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
 
 // Raise a kernel's dynamic shared memory limit when a block needs more
 // than the default 48 KB; returns a cudaError_t as int.

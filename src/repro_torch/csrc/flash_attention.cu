@@ -6,42 +6,60 @@
 // h reads KV head h / (H / H_kv), so K/V are never repeated (the JAX
 // wrapper repeats them and transposes to (B*H, S, D)).  Key j is visible to
 // query i when j < kv_len and, if causal, j <= i.  A row with no visible
-// key (kv_len == 0) gets zeros.
+// key (kv_len == 0) gets zeros.  Softmax statistics are f32; P is rounded
+// to the input type once, O divided by l once and rounded once.
 //
 // The TPU kernel keeps a query tile in VMEM and walks K/V tiles in a loop,
 // carrying the online-softmax statistics (m, l, acc) in f32; its causal
 // loop stops at the diagonal tile, and its wrapper pads S to the tile.
-// Here a block takes 64 query rows of one (sequence, head) and walks
-// 64-key tiles of K/V itself; the causal walk stops at the block's last
-// row.  Only a tile that holds a warp's causal diagonal or the ragged end
-// of kv_len / S is masked, so S is not padded.  K/V tiles come into a ring
-// of shared memory by 16-byte cp.async copies, each thread copying the
-// same chunks of every tile; rows at or past the key end are zero-filled
-// by a source size of 0.
+// Here a block takes a tile of query rows of one (sequence, head) and walks
+// K/V tiles itself; the causal walk stops at the block's last row.  Only a
+// tile that holds the causal diagonal or the ragged end of kv_len / S is
+// masked, so S is not padded.  Blocks are issued heaviest causal tile
+// first across all heads.
 //
 // What bounds it on the H100: 4*D operations per visible query-key pair
 // and head, far above the bytes at the serving shapes -- 4.3 GFLOP against
 // 4 MB for a 1,024-token prefill -- so the operations: 4.35 us at the
 // 989 TFLOP/s bf16 tensor-core rate, 96 us for the encoder's f32 batch at
-// the 67 TFLOP/s f32 FMA rate.  The design per input type:
+// the 67 TFLOP/s f32 FMA rate.  One exponential per visible pair comes on
+// top: at the SFU's 16 a clock an SM it takes as long as the bf16 products
+// at D = 64 and half as long at D = 128.  The design per input type:
 //
-// bf16 (prefill, greedy generation's prompt pass): FlashAttention-2 on the
-// warp-level tensor-core instruction mma.sync.m16n8k16 (bf16 in, f32
-// accumulate), which peaks near 600 TFLOP/s on this card, not 989 (that
-// needs wgmma).  4 warps, 16 query rows each.  The Q tile is copied to
-// shared memory once and held in registers as A fragments (ldmatrix).  K/V
-// stay bf16 in a three-slot ring, two tiles in flight under this tile's
-// math; rows are padded by 16 bytes, which keeps ldmatrix (K) and
-// ldmatrix.trans (V) free of bank conflicts.  S = Q K^T lands in f32
-// registers; the online softmax runs on those fragments: row max and sum
-// by two shuffles in the quad of lanes that shares a row, once per tile,
-// and one ex2 per (row, key) with log2(e)/sqrt(D) folded into the scale.
-// P is rounded to bf16 in registers and fed straight back as the A
-// operand of P V (the m16n8k16 accumulator layout is its A layout); O
-// accumulates in f32.  The output is divided by l once, rounded once,
-// staged through shared memory and written in 16-byte stores.  Blocks are
-// issued heaviest causal tile first across all heads.  Not done: wgmma,
-// TMA and warp specialisation.
+// bf16, D = 64 and 128 (every model's prefill and greedy generation's prompt
+// pass): FlashAttention-3's layout without its overlaps.  A block is three
+// warpgroups: two consumer warpgroups of 64 query rows each (128 rows a block)
+// and a producer, one thread of which issues every copy while its other warps
+// exit (setmaxnreg works on whole warpgroups: it moves the producer's registers
+// to the consumers, 24 and 240 a thread).  Copies are TMA tensor copies from
+// 4-D tensor maps (D, heads, S, B), encoded on the host at each launch: the Q
+// tile once, then 128-key K and V tiles into a ring of 3 (D = 64) or 2 (D =
+// 128) stages, each stage with a K and a V barrier that the copies complete and
+// an empty barrier that every consumer warp arrives on.  A box is 64 columns
+// (128 bytes, so D = 128 takes two panels) x the tile's rows, 128-byte
+// swizzled, which is the layout wgmma reads; rows at or past S (Q) or kv_len
+// (K/V) come back as zeros, never as the next sequence's rows.  S = Q K^T is
+// wgmma m64n128k16 with both operands from shared-memory descriptors (K-major),
+// into 64 f32 registers a thread; the online softmax runs on that accumulator
+// (row max and sum over the quad of lanes that shares a row, one ex2 per score
+// with log2(e)/sqrt(D) folded into the scale).  P is rounded to bf16 in
+// registers, where the accumulator layout of 16 keys is the register-A layout
+// of a 16-deep step, and O += P V is wgmma m64nDk16 with A from registers and V
+// from shared memory N-major (the transpose bit).  The output is divided by l,
+// rounded, staged through the warpgroup's rows of the Q tile and written in
+// 16-byte stores.  Not done: overlapping one tile's softmax with the next
+// tile's products in a warpgroup, ping-pong between the two warpgroups, a TMA
+// store, fp8.
+//
+// bf16, D = 16 and 32 (the reduced configurations only): FlashAttention-2 on
+// the warp-level mma.sync.m16n8k16 (bf16 in, f32 accumulate), kept as a second
+// path: rows of 32 or 64 bytes would need the 32- and 64-byte swizzles, two
+// more layouts, for widths no served model has.  4 warps, 16 query rows each,
+// 64-key tiles.  The Q tile is copied to shared memory once and held in
+// registers as A fragments (ldmatrix); K/V come by 16-byte cp.async into a
+// three-slot ring of rows padded by 16 bytes (ldmatrix and ldmatrix.trans free
+// of bank conflicts); P is fed back as the A operand of P V from the
+// accumulator, as above.
 //
 // f32 (the encoder: corpus and query embeds, rerank, safety): no TF32, so
 // the JAX f32 semantics hold; a register-tiled micro-GEMM on the FMA
@@ -55,14 +73,16 @@
 
 #include "common.cuh"
 
+#include <cuda.h>
+
 #include <cmath>
 
 namespace {
 
-constexpr int kKeys = 64;   // keys per K/V tile
+constexpr int kKeys = 64;   // keys per K/V tile (mma.sync and f32 paths)
 
 // ---------------------------------------------------------------------------
-// bf16: mma.sync tensor cores
+// bf16, D = 16 and 32: mma.sync tensor cores
 // ---------------------------------------------------------------------------
 
 constexpr int kWarpsBf16 = 4;                  // 16 query rows each
@@ -118,7 +138,7 @@ struct Bf16Smem {
 };
 
 template <int D>
-__global__ void __launch_bounds__(kThreadsBf16) flash_bf16_kernel(
+__global__ void __launch_bounds__(kThreadsBf16) flash_bf16_narrow_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
     int s, int h, int h_kv, int causal, int kv_len, float scale_log2) {
@@ -325,6 +345,418 @@ __global__ void __launch_bounds__(kThreadsBf16) flash_bf16_kernel(
                                           q_stride +
                                 static_cast<size_t>(hq) * D + c * 8) =
           *reinterpret_cast<const uint4*>(stage + r * kStride + c * 8);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16, D = 64 and 128: wgmma and TMA, a producer warp, two consumer
+// warpgroups
+// ---------------------------------------------------------------------------
+
+constexpr int kConsumers = 2;                      // consumer warpgroups
+constexpr int kRowsWg = 64;                        // query rows of each
+constexpr int kRowsHop = kConsumers * kRowsWg;     // query rows a block
+constexpr int kKeysHop = 128;                      // keys a K/V tile
+constexpr int kThreadsHop = (kConsumers + 1) * 128;
+constexpr int kPanel = 64;     // bf16 columns of a 128-byte swizzled panel
+
+template <int D>
+struct HopSmem {
+  static constexpr int kPanels = D / kPanel;
+  static constexpr int kStages = D == 64 ? 3 : 2;  // K/V tiles in the ring
+  static constexpr int kQPanel = kRowsHop * 128;   // bytes of a Q panel
+  static constexpr int kKVPanel = kKeysHop * 128;  // bytes of a K/V panel
+  static constexpr int kQ = kPanels * kQPanel;
+  static constexpr int kKV = kPanels * kKVPanel;   // bytes of a K or V tile
+  static constexpr int kBarriers = 1 + 3 * kStages;
+  // 1,024 bytes of slack to align the tiles to the swizzle's 1,024 bytes
+  static constexpr size_t kBytes =
+      1024 + kQ + 2 * static_cast<size_t>(kStages) * kKV + 8 * kBarriers;
+};
+
+// Descriptor of a 128-byte swizzled operand tile in shared memory at
+// `addr` (inside a 1,024-byte aligned swizzle atom): `lbo` bytes between
+// the atoms along the contiguous dimension (N-major B only), `sbo` bytes
+// between groups of 8 rows (K-major) or of 8 k (N-major).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3ffff) >> 4) |
+         static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 |
+         1ull << 62;                               // 128-byte swizzle
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from touching registers that an issued wgmma still
+// reads or writes until the wait that precedes this
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+  }
+}
+
+// d = A B, or d += A B when `accumulate`: A 64 x 16 and B 16 x 128 from
+// shared memory (descriptors), f32 accumulate
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      " %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      " %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d += A B: A 64 x 16 from registers (each warp's 16 rows in the
+// m16n8k16 A layout), B 16 x 64 from shared memory stored N-major (the
+// transpose bit), f32 accumulate
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d += A B: A 64 x 16 from registers (each warp's 16 rows in the
+// m16n8k16 A layout), B 16 x 128 from shared memory stored N-major (the
+// transpose bit), f32 accumulate
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      " %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      " %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// the P V product of one 16-key step: O is 64 x D
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
+                                         const uint32_t (&p)[4], uint64_t v) {
+  if constexpr (D == 64) {
+    wgmma_rs_n64(o, p, v);
+  } else {
+    wgmma_rs_n128(o, p, v);
+  }
+}
+
+// Box of 64 columns x `rows` rows of one (sequence, head) from a 4-D
+// tensor map (D, heads, rows, B), into shared memory by the TMA engine;
+// completes `bar`'s transaction bytes.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         int col, int head, int row,
+                                         int seq, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(head), "r"(row),
+      "r"(seq), "r"(smem_addr(bar))
+      : "memory");
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsHop, 1) flash_bf16_kernel(
+    const __grid_constant__ CUtensorMap q_map,
+    const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map,
+    __nv_bfloat16* __restrict__ out, int s, int h, int h_kv, int causal,
+    int kv_len, float scale_log2) {
+  using L = HopSmem<D>;
+  constexpr int kStages = L::kStages;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* qs = smem_raw + ((1024 - smem_addr(smem_raw) % 1024) % 1024);
+  unsigned char* ks = qs + L::kQ;                      // kStages tiles
+  unsigned char* vs = ks + kStages * L::kKV;           // kStages tiles
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + kStages * L::kKV);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + kStages;
+  uint64_t* empty = v_full + kStages;
+
+  // blocks are issued in order of their linear index: the heaviest causal
+  // tiles of every (sequence, head) first
+  const int lin = blockIdx.y * gridDim.x + blockIdx.x;
+  const int qt = gridDim.x - 1 - lin / gridDim.y;
+  const int b = lin % gridDim.y / h;
+  const int hq = lin % gridDim.y % h;
+  const int hk = hq / (h / h_kv);
+  const int q0 = qt * kRowsHop;
+  const int kv_end = causal ? min(kv_len, q0 + kRowsHop) : kv_len;
+  const int n_tiles = (kv_end + kKeysHop - 1) / kKeysHop;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    barrier_init(q_full);
+    for (int i = 0; i < kStages; ++i) {
+      barrier_init(&k_full[i]);
+      barrier_init(&v_full[i]);
+      barrier_init(&empty[i], kConsumers * 4);   // every consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == kConsumers) {
+    // producer: one thread keeps the ring full; the warpgroup's registers
+    // go to the consumers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == kConsumers * 128) {
+      barrier_expect_tx(q_full, L::kQ);
+#pragma unroll
+      for (int p = 0; p < L::kPanels; ++p) {
+        tma_load(qs + p * L::kQPanel, &q_map, p * kPanel, hq, q0, b, q_full);
+      }
+      for (int tile = 0; tile < n_tiles; ++tile) {
+        const int st = tile % kStages;
+        // the consumers' release of the tile that last held this slot
+        if (tile >= kStages) {
+          barrier_wait(&empty[st], (tile / kStages - 1) & 1);
+        }
+        barrier_expect_tx(&k_full[st], L::kKV);
+#pragma unroll
+        for (int p = 0; p < L::kPanels; ++p) {
+          tma_load(ks + st * L::kKV + p * L::kKVPanel, &k_map, p * kPanel, hk,
+                   tile * kKeysHop, b, &k_full[st]);
+        }
+        barrier_expect_tx(&v_full[st], L::kKV);
+#pragma unroll
+        for (int p = 0; p < L::kPanels; ++p) {
+          tma_load(vs + st * L::kKV + p * L::kKVPanel, &v_map, p * kPanel, hk,
+                   tile * kKeysHop, b, &v_full[st]);
+        }
+      }
+    }
+  } else {
+    // consumer warpgroup wg: query rows q0 + 64 wg ... + 63
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    // lane roles in the accumulator: rows g and g + 8 of the warp's 16,
+    // columns 2t and 2t + 1 of every 8
+    const int g = lane / 4;
+    const int t = lane % 4;
+    const int wg_row = q0 + wg * kRowsWg;
+    const int row0 = wg_row + warp * 16 + g;
+    const int row1 = row0 + 8;
+    const uint32_t q_addr = smem_addr(qs) + wg * kRowsWg * 128;
+
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY};   // running max of raw scores
+    float l[2] = {0.f, 0.f};               // this thread's share of the sums
+
+    barrier_wait(q_full, 0);
+    for (int tile = 0; tile < n_tiles; ++tile) {
+      const int st = tile % kStages;
+      const int parity = (tile / kStages) & 1;
+      const uint32_t k_addr = smem_addr(ks + st * L::kKV);
+      const uint32_t v_addr = smem_addr(vs + st * L::kKV);
+
+      // S = Q K^T, 64 rows x 128 keys: both operands K-major; a 16-column
+      // step moves 32 bytes inside a panel's swizzle atom
+      float sc[kKeysHop / 2];
+      barrier_wait(&k_full[st], parity);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int off = (kk % 4) * 32;
+        wgmma_ss_n128(sc,
+                      smem_desc(q_addr + (kk / 4) * L::kQPanel + off, 16,
+                                1024),
+                      smem_desc(k_addr + (kk / 4) * L::kKVPanel + off, 16,
+                                1024),
+                      kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+
+      const int k0 = tile * kKeysHop;
+      // only a tile that holds the warpgroup's causal diagonal or the
+      // ragged key end is masked
+      if (k0 + kKeysHop > kv_end || (causal && k0 + kKeysHop - 1 > wg_row)) {
+#pragma unroll
+        for (int j = 0; j < kKeysHop / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int key = k0 + j * 8 + 2 * t + e;
+            const bool live = key < kv_end;
+            if (!live || (causal && key > row0)) sc[4 * j + e] = -INFINITY;
+            if (!live || (causal && key > row1)) sc[4 * j + 2 + e] = -INFINITY;
+          }
+        }
+      }
+      // online softmax on the accumulator: row g in (c0, c1) of each 8
+      // keys, row g + 8 in (c2, c3); a row's 128 keys lie in a quad
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int j = 0; j < kKeysHop / 8; ++j) {
+        mx[0] = fmaxf(mx[0], fmaxf(sc[4 * j], sc[4 * j + 1]));
+        mx[1] = fmaxf(mx[1], fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+      }
+      float base[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        // a row with nothing visible yet keeps a finite base: its p are 0
+        base[r] = mx[r] == -INFINITY ? 0.f : mx[r] * scale_log2;
+        const float corr = exp2_p(m[r] * scale_log2 - base[r]);  // 0 at -inf
+        m[r] = mx[r];
+        l[r] *= corr;
+#pragma unroll
+        for (int i = 0; i < D / 8; ++i) {
+          o[4 * i + 2 * r] *= corr;
+          o[4 * i + 2 * r + 1] *= corr;
+        }
+      }
+      // P in bf16 as the A operand of P V: the accumulator layout of 16
+      // keys is the register A layout of a 16-deep step
+      uint32_t pf[kKeysHop / 16][4];
+#pragma unroll
+      for (int j = 0; j < kKeysHop / 8; ++j) {
+        const float p0 = exp2_p(fmaf(sc[4 * j], scale_log2, -base[0]));
+        const float p1 = exp2_p(fmaf(sc[4 * j + 1], scale_log2, -base[0]));
+        const float p2 = exp2_p(fmaf(sc[4 * j + 2], scale_log2, -base[1]));
+        const float p3 = exp2_p(fmaf(sc[4 * j + 3], scale_log2, -base[1]));
+        l[0] += p0 + p1;
+        l[1] += p2 + p3;
+        pf[j / 2][(j % 2) * 2] = pack_bf16(p0, p1);
+        pf[j / 2][(j % 2) * 2 + 1] = pack_bf16(p2, p3);
+      }
+
+      // O += P V: V is N-major (d contiguous); a 16-key step moves two
+      // 8-key groups of 1,024 bytes, and the second d panel of D = 128 is
+      // a K/V panel further on
+      barrier_wait(&v_full[st], parity);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kKeysHop / 16; ++kk) {
+        wgmma_pv<D>(o, pf[kk],
+                    smem_desc(v_addr + kk * 2048, L::kKVPanel, 1024));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(o);
+      fence_regs(pf);
+      __syncwarp();
+      if (lane == 0) barrier_arrive(&empty[st]);   // this warp is done
+    }
+
+    // epilogue: O / l, rounded once, into this warpgroup's rows of the Q
+    // tile (read by no one else) in the same swizzle, then 16-byte stores
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float sum = l[r];
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      inv[r] = sum > 0.f ? 1.f / sum : 0.f;
+    }
+    unsigned char* stage = qs + wg * kRowsWg * 128;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {      // 16-byte chunk i of each row
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = warp * 16 + g + 8 * r;
+        *reinterpret_cast<uint32_t*>(
+            stage + (i / 8) * L::kQPanel + row * 128 +
+            (((i % 8) ^ (row % 8)) * 16) + 4 * t) =
+            pack_bf16(o[4 * i + 2 * r] * inv[r], o[4 * i + 2 * r + 1] * inv[r]);
+      }
+    }
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+    constexpr int kChunks = D / 8;
+    const size_t q_stride = static_cast<size_t>(h) * D;
+    for (int i = tid; i < kRowsWg * kChunks; i += 128) {
+      const int row = i / kChunks;
+      const int c = i % kChunks;
+      const int qpos = wg_row + row;
+      if (qpos < s) {
+        *reinterpret_cast<uint4*>(out + (static_cast<size_t>(b) * s + qpos) *
+                                            q_stride +
+                                  static_cast<size_t>(hq) * D + c * 8) =
+            *reinterpret_cast<const uint4*>(stage + (c / 8) * L::kQPanel +
+                                            row * 128 +
+                                            (((c % 8) ^ (row % 8)) * 16));
+      }
     }
   }
 }
@@ -575,6 +1007,59 @@ __global__ void __launch_bounds__(kThreadsF32) flash_f32_kernel(
 // launch
 // ---------------------------------------------------------------------------
 
+// cuTensorMapEncodeTiled, looked up at run time through the runtime's
+// entry-point query so that the library needs no link to libcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The 4-D map (D, heads, rows, B) of a (B, S, heads, D) bf16 tensor in
+// boxes of 64 columns x `box_rows` rows of one (sequence, head), 128-byte
+// swizzled.  Rows at or past `rows` (<= S) read as zeros, so a box never
+// reaches into the next sequence.  Returns a cudaError_t as int.
+int tensor_map(CUtensorMap* map, const void* base, int s, int heads, int d,
+               int rows, int b, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(b)};
+  const cuuint64_t row_bytes = static_cast<cuuint64_t>(heads) * d * 2;
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(d) * 2, row_bytes,
+                                 row_bytes * s};
+  const cuuint32_t box[4] = {kPanel, 1, static_cast<cuuint32_t>(box_rows),
+                             1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+      dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* out, int b,
            int s, int h, int h_kv, int causal, int kv_len,
@@ -582,12 +1067,29 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
   const double log2e = 1.4426950408889634;
   const float scale_log2 =
       static_cast<float>(log2e / sqrt(static_cast<double>(D)));
-  if constexpr (sizeof(T) == 2) {
+  if constexpr (sizeof(T) == 2 && D >= 64) {
+    CUtensorMap maps[3];
+    int err = tensor_map(&maps[0], q, s, h, D, s, b, kRowsHop);
+    // keys at or past kv_len read as zeros (one row when there are none:
+    // no tile is loaded then)
+    for (int i = 1; i < 3 && err == 0; ++i) {
+      err = tensor_map(&maps[i], i == 1 ? k : v, s, h_kv, D, max(kv_len, 1),
+                       b, kKeysHop);
+    }
+    if (err != 0) return err;
+    const dim3 grid((s + kRowsHop - 1) / kRowsHop, b * h);
+    const size_t bytes = HopSmem<D>::kBytes;
+    err = allow_smem(flash_bf16_kernel<D>, bytes);
+    if (err != 0) return err;
+    flash_bf16_kernel<D><<<grid, kThreadsHop, bytes, stream>>>(
+        maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(out), s, h,
+        h_kv, causal, kv_len, scale_log2);
+  } else if constexpr (sizeof(T) == 2) {
     const dim3 grid((s + kRowsBf16 - 1) / kRowsBf16, b * h);
     const size_t bytes = Bf16Smem<D>::kBytes;
-    const int err = allow_smem(flash_bf16_kernel<D>, bytes);
+    const int err = allow_smem(flash_bf16_narrow_kernel<D>, bytes);
     if (err != 0) return err;
-    flash_bf16_kernel<D><<<grid, kThreadsBf16, bytes, stream>>>(
+    flash_bf16_narrow_kernel<D><<<grid, kThreadsBf16, bytes, stream>>>(
         static_cast<const __nv_bfloat16*>(q),
         static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v),

@@ -131,38 +131,6 @@ __device__ __forceinline__ void copy_tile(unsigned char* slot, int stride,
   }
 }
 
-// An mbarrier that one arrival (with the bytes it expects) completes.
-__device__ __forceinline__ void barrier_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-
-// One bulk copy (the TMA engine) of `bytes` contiguous bytes, a multiple of
-// 16 at 16-byte aligned addresses, which completes the barrier's phase.
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          int bytes, uint64_t* bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// Wait for the completion of the barrier's phase of this parity.
-__device__ __forceinline__ void barrier_wait(uint64_t* bar, int parity) {
-  asm volatile(
-      "{\n .reg .pred done;\n WAIT_%=:\n"
-      " mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      " @!done bra WAIT_%=;\n}\n" ::"r"(smem_addr(bar)),
-      "r"(parity)
-      : "memory");
-}
-
 template <int G, bool kBulk>
 __global__ void __launch_bounds__(kThreads) pq_scan_kernel(
     const float* __restrict__ lut, const unsigned char* __restrict__ codes,
@@ -181,7 +149,7 @@ __global__ void __launch_bounds__(kThreads) pq_scan_kernel(
   if constexpr (kBulk) {
     if (threadIdx.x == 0) {
       for (int i = 0; i < kRing; ++i) barrier_init(&full[i]);
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      fence_barrier_init();
     }
     __syncthreads();
   }

@@ -11,7 +11,9 @@ The sources expose a plain C interface (pointers, ints, the stream), so
 no PyTorch header is compiled and a build takes seconds.
 
     python -m repro_torch.kernels._build --ptxas   # each kernel's registers,
-                                                   # shared memory, spills
+                                                   # shared memory, spills,
+                                                   # and its tensor-core and
+                                                   # TMA instructions
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -29,6 +32,10 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 LIB_NAME = "libkernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
+
+#: SASS instructions counted in each kernel: wgmma, TMA tensor loads, and
+#: the warp-level mma.sync
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -80,10 +87,35 @@ def ptxas_report(build_dir: Path = BUILD_DIR) -> str:
     spill stores and loads), each source compiled again beside the build."""
     out_dir = build_dir / "ptxas"
     out_dir.mkdir(parents=True, exist_ok=True)
-    _, outputs, failed = _compile_all(out_dir, ("-Xptxas", "-v"))
+    objs, outputs, failed = _compile_all(out_dir, ("-Xptxas", "-v"))
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-    return "\n".join(f"== {src.name}\n{out}" for src, out in outputs)
+    return "\n".join(f"== {src.name}\n{out}{sass_counts(obj)}"
+                     for obj, (src, out) in zip(objs, outputs))
+
+
+def sass_counts(obj: Path) -> str:
+    """Each kernel's count of the ``SASS_OPS`` instructions in an object,
+    from ``cuobjdump -sass``, one line a kernel."""
+    tool = shutil.which("cuobjdump") or str(Path(nvcc_path()).with_name(
+        "cuobjdump"))
+    if not Path(tool).exists():
+        return "cuobjdump not found: no SASS counts\n"
+    sass = subprocess.run([tool, "-sass", str(obj)], capture_output=True,
+                          text=True, check=True).stdout
+    counts: dict[str, dict[str, int]] = {}
+    kernel = None
+    for line in sass.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            kernel = head.group(1)
+            counts[kernel] = dict.fromkeys(SASS_OPS, 0)
+        elif kernel is not None:
+            for op in SASS_OPS:
+                counts[kernel][op] += bool(re.search(rf"\b{op}\b", line))
+    return "".join(f"sass {name}: " + ", ".join(
+        f"{op} {n}" for op, n in c.items()) + "\n"
+        for name, c in counts.items())
 
 
 def build(build_dir: Path = BUILD_DIR) -> Path:

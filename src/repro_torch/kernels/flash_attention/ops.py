@@ -62,10 +62,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"the grid's {MAX_GRID_Y}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("flash_attention needs contiguous inputs")
-    if k.data_ptr() % 16 or v.data_ptr() % 16:
-        raise ValueError("flash_attention reads K/V rows in 16-byte loads: "
-                         "k and v must be 16-byte aligned")
     out = torch.empty_like(q)
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention moves rows by TMA and in "
+                             f"16-byte loads and stores: {name} must be "
+                             f"16-byte aligned")
     fn = _build.function(_ENTRY[q.dtype], 4, 7)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              b, s, h, k.shape[2], d, int(causal),

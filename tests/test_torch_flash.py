@@ -253,8 +253,9 @@ def test_sliding_window_has_no_flash_path():
 # On a GPU: the CUDA kernel against its plain version
 # ---------------------------------------------------------------------------
 
-#: (B, S, H, H_kv, D, kv_len): ragged S against the kernel's 64-row and
-#: 64-key tiles, GQA ratios, every head width, and a kv_len mask
+#: (B, S, H, H_kv, D, kv_len): ragged S against the kernels' tiles (64
+#: rows and keys; 128 on the bf16 wgmma path at D = 64 and 128), GQA
+#: ratios, every head width, and a kv_len mask
 CUDA_CASES = {
     "prefill": (1, 1024, 32, 8, 64, None),
     "encoder": (4, 256, 12, 12, 64, None),
@@ -265,6 +266,17 @@ CUDA_CASES = {
     # Moonlight-16B-A3B's and ChatGLM3-6B's 1,024-token prefills
     "moe_prefill": (1, 1024, 16, 16, 128, None),
     "g16_prefill": (1, 1024, 32, 2, 128, None),
+    # D = 128 at S below, on and past the 128-row tile edges
+    "d128_s8": (1, 8, 4, 2, 128, None),
+    "d128_s40": (2, 40, 8, 2, 128, None),
+    "d128_s129": (1, 129, 8, 8, 128, None),
+    "d128_s1000": (1, 1000, 16, 8, 128, None),
+    # four sequences: TMA zero-fills at each one's S bound, and never reads
+    # the next sequence's rows
+    "d128_batch": (4, 300, 8, 2, 128, None),
+    "d128_kv_len": (2, 300, 8, 2, 128, 171),
+    # the K/V ring wraps 16 times
+    "d64_wrap": (1, 2048, 4, 1, 64, None),
 }
 
 
@@ -312,6 +324,24 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="aligned"):
         flat = torch.zeros(k.numel() + 1, device=cuda)
         fa.flash_attention_cuda(q, flat[1:].view(k.shape), v)
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_misaligned_q_or_out(cuda, monkeypatch):
+    """TMA and 16-byte stores need 16-byte aligned bases: a q or an output
+    off 16 bytes raises, with no plain fallback."""
+    q, k, v = (torch.tensor(x, device=cuda).bfloat16()
+               for x in _qkv(1, 40, 4, 2, 64))
+    flat = torch.zeros(q.numel() + 1, dtype=q.dtype, device=cuda)
+    off = flat[1:].view(q.shape)
+    off.copy_(q)
+    before = fa.flash_attention.launches
+    with pytest.raises(ValueError, match="q must be 16-byte aligned"):
+        fa.flash_attention_cuda(off, k, v)
+    monkeypatch.setattr(torch, "empty_like", lambda x: off)
+    with pytest.raises(ValueError, match="out must be 16-byte aligned"):
+        fa.flash_attention_cuda(q, k, v)
+    assert fa.flash_attention.launches == before
 
 
 @pytest.mark.cuda
