@@ -1,0 +1,70 @@
+"""Run one cell of the benchmark and print its result line.
+
+    python3 bench/run.py --workload <cell> --seed <n> --seconds <s> \
+        --trace <0|1>
+
+From the root of a checkout, on a machine with the CUDA devices the cell
+asks for (it exits non-zero without them, and without the program under
+``src/``).  The last line of standard output is one JSON object:
+``correct``, ``attempted``, ``failed``, ``metrics`` (the cell's end-to-end
+metrics, or with ``--trace 1`` its per-layer ones), ``device``, with
+``--trace 1`` a ``breakdown``, and last ``checks``: each number compared
+with its limit, which also end standard error.
+"""
+
+import time
+
+T_START = time.monotonic()
+
+import argparse  # noqa: E402
+import json  # noqa: E402
+import sys  # noqa: E402
+from pathlib import Path  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
+
+
+def forbidden_modules() -> list[str]:
+    """Loaded modules whose top-level name, compared whole, is JAX's or
+    the JAX package's (``repro_torch`` is neither)."""
+    return sorted({m for m in sys.modules if m.split(".")[0] in FORBIDDEN})
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--workload", required=True)
+    ap.add_argument("--seed", type=int, required=True)
+    ap.add_argument("--seconds", type=float, required=True)
+    ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
+    args = ap.parse_args(argv)
+    sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+    from bench.core import spec
+    bm = spec.load_benchmark(ROOT)
+    wl = spec.workload(bm, args.workload)
+    import torch
+    if not torch.cuda.is_available() or \
+            torch.cuda.device_count() < int(wl["chips"]):
+        print(f"{args.workload} needs {wl['chips']} CUDA device(s); "
+              f"found {torch.cuda.device_count()}", file=sys.stderr)
+        return 2
+    torch.set_num_threads(4)
+    from bench.core.cell import run_cell
+    result, info = run_cell(bm, args.workload, args.seed, args.seconds,
+                            bool(args.trace), device="cuda",
+                            t_start=T_START)
+    found = forbidden_modules()
+    if found:
+        print("JAX or the JAX package was loaded: " + ", ".join(found),
+              file=sys.stderr)
+        return 3
+    print(json.dumps(info), file=sys.stderr)
+    for name, c in result["checks"].items():
+        print(f"check {name}: {c['value']!r} (limit {c['limit']!r})",
+              file=sys.stderr)
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
