@@ -23,7 +23,11 @@ Hot path, as in the JAX engine:
   same documents.  ``paged=False`` (implied by ``fused_decode=False``)
   keeps the dense slot pool.
 * The decode step is one forward + argmax with one (B,)-token
-  device->host copy per step; slots that are not stepping write nothing
+  device->host read per step (``decode_host_syncs``), after four
+  host->device copies of its inputs on the paged pool (tokens,
+  positions, block tables, write mask; ``h2d_copies``), each on a GPU a
+  blocking copy that waits for the device's queue; slots that are not
+  stepping write nothing
   (on the dense pool that replaces JAX's whole-cache step-mask merge).
   Decode attention is a CUDA kernel on a CUDA device (``attn_impl=
   "cuda"``: paged-decode on the paged pool, dense decode on the dense
@@ -67,10 +71,12 @@ from repro_torch.retrieval.backend import (ExactBackend, FallbackBackend,
 from repro_torch.serving.faults import EngineCrash, EngineHealth
 from repro_torch.serving.kv_cache import KVCachePool, PagedKVCachePool
 from repro_torch.serving.request import Request, State
-from repro_torch.serving.telemetry import (NULL_TRACER, MetricsRegistry,
-                                           stage_kind)
+from repro_torch.serving.telemetry import (MONO, NULL_TRACER, Counter,
+                                           MetricsRegistry, stage_kind)
 
 ATTN_IMPLS = ("auto", "ref", "cuda", "splitk")
+#: rows of one encoder batch; a ragged last batch is padded to it
+EMBED_BATCH = 32
 
 
 def bucket_len(n: int, floor: int = 8) -> int:
@@ -190,10 +196,11 @@ class RAGEngine:
         self.safety = safety
         self.cfg = cfg
         self.corpus = np.asarray(corpus_tokens)
+        self.h2d = Counter()     # copies to the device: ``h2d_copies``
         self.pool = (PagedKVCachePool(generative.cfg, cfg.decode_slots,
                                       cfg.s_max, page_size=cfg.page_size,
                                       spare_pages=cfg.kv_spare_pages,
-                                      device=self.device)
+                                      device=self.device, h2d=self.h2d)
                      if cfg.paged else
                      KVCachePool(generative.cfg, cfg.decode_slots, cfg.s_max,
                                  device=self.device))
@@ -207,11 +214,13 @@ class RAGEngine:
              "prefills": 0,
              "prefill_compiles": 0, "append_compiles": 0,
              "host_syncs": 0, "decode_host_syncs": 0,
+             "h2d_copies": self.h2d,
              "cache_copy_bytes": 0, "capacity_stops": 0,
              "degraded_answers": 0, "stage_time_s": {}})
         self.tracer = NULL_TRACER
         self.trace_name = "engine0"
         self.tick_no = 0
+        self._lap_t = 0.0       # where the open sub-stage span began
         self.health = EngineHealth.HEALTHY
         self.fail_reason: str | None = None
         self.injector = None
@@ -376,6 +385,20 @@ class RAGEngine:
                               engine=self.trace_name, tick=self.tick_no,
                               attrs=attrs)
 
+    def _lap(self, kind: str | None = None) -> None:
+        """Close the sub-stage span ``kind``, open since the last lap, on
+        this engine's track; with no ``kind``, start the first.  Called
+        only with tracing on: sub-stage spans split a stage for the trace
+        and feed neither ``stage_time_s`` nor the stage histograms.  A
+        lap may close in another method than the one that opened it:
+        ``decode.prepare`` opens in :meth:`_decode_active` and closes in
+        :meth:`decode_logits` once the step's inputs are on the device."""
+        t = MONO()
+        if kind is not None:
+            self.tracer.record(kind, self._lap_t, t, engine=self.trace_name,
+                               tick=self.tick_no)
+        self._lap_t = t
+
     @contextmanager
     def _metered(self, stage: str):
         """:meth:`_timed` without a span: the stage's wall time feeds
@@ -392,9 +415,12 @@ class RAGEngine:
             self._account(stage, time.monotonic() - t0)
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        """``a`` on the device, counted in ``h2d_copies``."""
+        self.h2d.value += 1
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
-    def _embed_batched(self, tokens: np.ndarray, bs: int = 32) -> torch.Tensor:
+    def _embed_batched(self, tokens: np.ndarray,
+                       bs: int = EMBED_BATCH) -> torch.Tensor:
         """Encode rows in fixed-size batches; the final ragged chunk is
         padded to ``bs`` rows and the pad rows are sliced off (each row
         embeds independently).  Raises ``ValueError`` for an id past the
@@ -415,7 +441,11 @@ class RAGEngine:
     def retrieve(self, queries: np.ndarray, k: int) -> np.ndarray:
         """queries: (B, T) -> (B, k) doc indices via the retrieval backend.
         Approximate backends may pad the id tail with -1."""
-        with self._timed("embed"):
+        attrs = None
+        if self.tracer.enabled:
+            n = len(queries)
+            attrs = {"rows": n, "pad_rows": -n % EMBED_BATCH}
+        with self._timed("embed", attrs=attrs):
             qv = self._embed_batched(queries)
         with self._timed("retrieve"):
             _, idx = self.backend.search(qv, k)
@@ -447,6 +477,9 @@ class RAGEngine:
         run one full-logits forward.  Causality makes tail padding inert;
         the first token is read at position len(prompt)-1 and only the
         valid cache prefix is installed in the slot."""
+        tracer = self.tracer
+        if tracer.enabled:
+            self._lap()
         req.state = State.PREFILL
         prompt = req.prompt
         length = len(prompt)
@@ -460,20 +493,26 @@ class RAGEngine:
                                          self._tensor(padded), self.gen.cfg,
                                          collect_cache=True,
                                          attn_impl=self.seq_attn)
+        if tracer.enabled:
+            self._lap("STAGE:prefill.launch")
         # the bucket salts the page keys: pages are shared only between
         # prefills that ran the same shapes on the same inputs
         self.pool.write_prefix(slot, cache, length, tokens=prompt,
                                key_salt=str(bucket).encode())
+        if tracer.enabled:
+            self._lap("STAGE:prefill.write")
         tok = int(torch.argmax(logits[0, length - 1,
                                       :self.gen.cfg.vocab_size]))
+        if tracer.enabled:
+            self._lap("STAGE:prefill.read")
         self.metrics["host_syncs"] += 1
         req.output.append(tok)
         req.t_first_token = time.monotonic()
         self.metrics["prefills"] += 1
-        if self.tracer.enabled:
+        if tracer.enabled:
             # lands on the enclosing PREFILL span (payload attribution)
-            self.tracer.annotate(req.rid, prompt_tokens=length,
-                                 prefill_bucket=bucket)
+            tracer.annotate(req.rid, prompt_tokens=length,
+                            prefill_bucket=bucket)
 
     def _admit(self) -> None:
         while self.queue and self.pool.free:
@@ -574,6 +613,9 @@ class RAGEngine:
         ``tr.paged_chunk_extend`` per power-of-two bucket writes the
         chunk.  Returns the last valid row's logits (left on the device;
         only chunked prefill's final chunk reads them)."""
+        tracer = self.tracer
+        if tracer.enabled:
+            self._lap()
         t = len(tokens)
         self.pool.prepare_append(slot, t)
         bucket = bucket_len(t)
@@ -582,11 +624,16 @@ class RAGEngine:
             self.metrics["append_compiles"] += 1
         padded = np.zeros(bucket, np.int32)
         padded[:t] = tokens
+        row = self._tensor(self.pool.block_row(slot))
+        chunk = self._tensor(padded)
+        if tracer.enabled:
+            self._lap("STAGE:append.prepare")
         self.pool.cache, logits = tr.paged_chunk_extend(
-            self.gen.params, self.pool.cache,
-            self._tensor(self.pool.block_row(slot)), self._tensor(padded),
+            self.gen.params, self.pool.cache, row, chunk,
             int(self.pool.lengths[slot]), t, self.gen.cfg)
         self.pool.lengths[slot] += t
+        if tracer.enabled:
+            self._lap("STAGE:append.launch")
         return logits
 
     def _iter_query(self, req: Request) -> np.ndarray:
@@ -656,31 +703,47 @@ class RAGEngine:
         self.tick_no += 1
         if not stepping:
             return
-        attrs = ({"n": len(stepping)} if self.tracer.enabled else None)
+        attrs = None
+        if self.tracer.enabled:
+            attrs = {"n": len(stepping)}
+            h2d = self.h2d.value
         with self._timed("decode", attrs=attrs):
             self._decode_active(token_vec, stepping)
+            if attrs is not None:
+                attrs["h2d"] = self.h2d.value - h2d
 
     def decode_logits(self, token_vec: np.ndarray,
                       step_mask: np.ndarray) -> torch.Tensor:
         """One decode step over every slot of the pool: (B, V) logits on
         the device.  Slots with ``step_mask`` False write nothing and
         their logits are to be ignored."""
-        if isinstance(self.pool, PagedKVCachePool):
+        paged = isinstance(self.pool, PagedKVCachePool)
+        tokens = self._tensor(token_vec)
+        # a copy: on the CPU the tensor would alias what advance() bumps
+        positions = self._tensor(self.pool.lengths.copy())
+        tables = self._tensor(self.pool.block_tables()) if paged else None
+        write_mask = self._tensor(step_mask)
+        if self.tracer.enabled:
+            self._lap("STAGE:decode.prepare")
+        if paged:
             logits, self.pool.cache = tr.paged_decode_step(
-                self.gen.params, self.pool.cache, self._tensor(token_vec),
-                self.pool.positions(),
-                self._tensor(self.pool.block_tables()), self.gen.cfg,
-                attn_impl=self.paged_attn,
-                write_mask=self._tensor(step_mask))
+                self.gen.params, self.pool.cache, tokens, positions, tables,
+                self.gen.cfg, attn_impl=self.paged_attn,
+                write_mask=write_mask)
         else:
             logits, self.pool.cache = tr.decode_step(
-                self.gen.params, self.pool.cache, self._tensor(token_vec),
-                self.pool.positions(), self.gen.cfg,
-                attn_impl=self.dense_attn,
-                write_mask=self._tensor(step_mask))
+                self.gen.params, self.pool.cache, tokens, positions,
+                self.gen.cfg, attn_impl=self.dense_attn,
+                write_mask=write_mask)
         return logits[:, :self.gen.cfg.vocab_size]
 
     def _decode_active(self, token_vec, stepping) -> None:
+        """The tick's sub-stages: prepare (write targets, the mask and the
+        inputs' copies, ending in :meth:`decode_logits`), launch (the
+        step and the argmax enqueued), read, retire."""
+        tracer = self.tracer
+        if tracer.enabled:
+            self._lap()
         if isinstance(self.pool, PagedKVCachePool):
             for slot in stepping:        # allocate/COW each write target
                 self.pool.prepare_append(slot, 1)
@@ -688,15 +751,22 @@ class RAGEngine:
         step_mask[stepping] = True
         logits = self.decode_logits(token_vec, step_mask)
         if self.cfg.fused_decode:
-            # the step's one sync: (B,) tokens
-            new_tokens = torch.argmax(logits, dim=-1).cpu().numpy()
+            new_tokens = torch.argmax(logits, dim=-1)
+            if tracer.enabled:
+                self._lap("STAGE:decode.launch")
+            # the step's one read: (B,) tokens
+            new_tokens = new_tokens.cpu().numpy()
         else:
+            if tracer.enabled:
+                self._lap("STAGE:decode.launch")
             # pre-fusion path (kept for parity tests): argmax on the host;
             # JAX rebuilds the whole cache here, and the count says so
             new_tokens = np.argmax(logits.float().cpu().numpy(), axis=-1)
             self.metrics["cache_copy_bytes"] += sum(
                 v.numel() * v.element_size()
                 for v in self.pool.cache.values())
+        if tracer.enabled:
+            self._lap("STAGE:decode.read")
         self.metrics["host_syncs"] += 1
         self.metrics["decode_host_syncs"] += 1
         self.pool.advance(stepping)
@@ -721,6 +791,8 @@ class RAGEngine:
         for slot in done_slots:
             self.active.pop(slot)
             self.pool.release(slot)
+        if tracer.enabled:
+            self._lap("STAGE:decode.retire")
 
     # ---------------- public API ------------------------------------------
 

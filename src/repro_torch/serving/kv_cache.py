@@ -206,8 +206,9 @@ class PagedKVCachePool:
 
     def __init__(self, cfg: tr.TransformerConfig, n_slots: int, s_max: int,
                  page_size: int = 16, spare_pages: int | None = None,
-                 dtype=torch.bfloat16, device="cuda"):
+                 dtype=torch.bfloat16, device="cuda", h2d=None):
         self.device = resolve_device(device)
+        self.h2d = h2d      # a telemetry Counter of copies to the device
         if page_size <= 0:
             raise ValueError("page_size must be positive")
         self.cfg = cfg
@@ -381,6 +382,8 @@ class PagedKVCachePool:
                                       device=self.device)
             phys_idx = torch.as_tensor([q for _, q in fresh],
                                        device=self.device)
+            if self.h2d is not None:
+                self.h2d.value += 2
             L = self.cfg.n_layers
             h, d = self.cfg.n_kv_heads, self.cfg.d_head
             for k, v in layer_cache.items():

@@ -15,7 +15,7 @@ package), pure Python: nothing here touches a tensor.
   counts overwritten spans in ``dropped``).
 
 * **Metrics registry** -- :class:`MetricsRegistry`: typed
-  :class:`Counter`/:class:`Gauge`/:class:`CounterFamily` cells behind the
+  :class:`Counter`/:class:`CounterFamily` cells behind the
   ``metrics["x"] += 1`` dict interface, and ``observe()`` into
   fixed-boundary :class:`Histogram` s.
 
@@ -40,8 +40,22 @@ work.  ``PREFILL``, ``DECODE_TICK`` and ``RETRIEVE`` each end in a read of
 their result on the host, so they cover their device work.  ``EMBED``
 returns the query vectors on the device without reading them, so the
 encoder's device time lands in the ``RETRIEVE`` span that follows it, as
-it does under JAX's asynchronous dispatch.  Tracing adds no
-synchronisation: ``host_syncs`` counts the same with it on and off.
+it does under JAX's asynchronous dispatch.
+
+Inside its stages the port's engine records sub-stage spans, kinds
+``STAGE:<stage>.<part>``, on its own track: ``decode.prepare``,
+``decode.launch``, ``decode.read`` and ``decode.retire`` tile a
+``DECODE_TICK``; ``prefill.launch``, ``prefill.write`` and
+``prefill.read`` a prefill; ``append.prepare`` and ``append.launch`` a
+paged append or prefill chunk.  They are for the trace alone: they feed
+neither ``stage_time_s`` nor the stage histograms.
+
+Tracing adds no synchronisation.  Of the engine's counters,
+``host_syncs`` counts the reads of a result on the host and
+``h2d_copies`` the copies of host arrays to the device.  On a GPU such a
+copy, from pageable memory, also waits for the device's queue to drain
+(PyTorch synchronises the stream after it), so a decode tick holds one
+read and, on the paged pool, four such copies.
 """
 
 from __future__ import annotations
@@ -314,15 +328,6 @@ class Counter:
         self.value = value
 
 
-class Gauge:
-    """Scalar cell that is set, not accumulated."""
-
-    __slots__ = ("value",)
-
-    def __init__(self, value=0):
-        self.value = value
-
-
 class Histogram:
     """Fixed-boundary histogram: ``counts[i]`` counts observations
     ``<= bounds[i]``; the final bucket is the +inf overflow."""
@@ -414,7 +419,7 @@ class CounterFamily(MutableMapping):
 class MetricsRegistry(MutableMapping):
     """Typed metrics behind the old free-form-dict interface.
 
-    ``reg["x"]`` reads a scalar (Counter/Gauge) or the live
+    ``reg["x"]`` reads a scalar (Counter) or the live
     :class:`CounterFamily`; ``reg["x"] = v`` writes through to the cell
     (creating a Counter for numbers, a CounterFamily for dicts).
     ``reg.observe(name, v)`` feeds a histogram.  ``reg.snapshot()`` returns
@@ -431,20 +436,20 @@ class MetricsRegistry(MutableMapping):
 
     def __getitem__(self, k):
         cell = self._cells[k]
-        if isinstance(cell, (Counter, Gauge)):
+        if isinstance(cell, Counter):
             return cell.value
         return cell
 
     def __setitem__(self, k, v):
         cell = self._cells.get(k)
-        if isinstance(cell, (Counter, Gauge)):
+        if isinstance(cell, Counter):
             cell.value = v
         elif isinstance(cell, CounterFamily):
             if v is not cell:            # replace contents, keep identity
                 cell._d = dict(v)
         elif isinstance(v, MutableMapping) or isinstance(v, dict):
             self._cells[k] = CounterFamily(v)
-        elif isinstance(v, (Counter, Gauge, CounterFamily)):
+        elif isinstance(v, (Counter, CounterFamily)):
             self._cells[k] = v
         else:
             self._cells[k] = Counter(v)
@@ -461,27 +466,7 @@ class MetricsRegistry(MutableMapping):
     def __repr__(self):
         return f"MetricsRegistry({self.snapshot()!r})"
 
-    # -- typed access ------------------------------------------------------
-
-    def counter(self, name) -> Counter:
-        cell = self._cells.setdefault(name, Counter(0))
-        if not isinstance(cell, Counter):
-            raise TypeError(f"{name} is not a Counter")
-        return cell
-
-    def gauge(self, name) -> Gauge:
-        cell = self._cells.get(name)
-        if cell is None:
-            cell = self._cells[name] = Gauge(0)
-        if not isinstance(cell, Gauge):
-            raise TypeError(f"{name} is not a Gauge")
-        return cell
-
-    def family(self, name) -> CounterFamily:
-        cell = self._cells.setdefault(name, CounterFamily())
-        if not isinstance(cell, CounterFamily):
-            raise TypeError(f"{name} is not a CounterFamily")
-        return cell
+    # -- histograms --------------------------------------------------------
 
     def histogram(self, name, bounds=DEFAULT_TIME_BUCKETS) -> Histogram:
         hist = self._hists.get(name)
@@ -499,7 +484,7 @@ class MetricsRegistry(MutableMapping):
         cells (the historical ``metrics_snapshot`` aliasing bug)."""
         out = {}
         for k, cell in self._cells.items():
-            if isinstance(cell, (Counter, Gauge)):
+            if isinstance(cell, Counter):
                 out[k] = cell.value
             else:
                 out[k] = cell.snapshot()

@@ -9,11 +9,15 @@
 * The collocated engine (baseline, and chunked prefill with iterative
   retrieval) and a 1+1 cluster serve a closed batch traced on both sides:
   the spans, in commit order and per request, are the JAX package's less
-  their times (kind, request, engine track, tick, attempt, attrs), both
+  their times (kind, request, engine track, tick, attempt, attrs), once
+  the port's sub-stage spans and the attrs it adds are left out; both
   traces are well formed, the span-derived TTFT and TPOT bracket the
   request fields, and tracing changes neither the tokens nor
-  ``host_syncs``.  The cluster's handoff steps (export, checksum, verify,
-  import) emit no span.
+  ``host_syncs``, ``h2d_copies`` and the stages timed.  The cluster's
+  handoff steps (export, checksum, verify, import) emit no span.
+* The port's sub-stage spans tile the stage they split, and
+  ``DECODE_TICK`` and ``EMBED`` carry the work the engine did: live rows,
+  their context, the copies to the device, the encoder's padding rows.
 * Every ``CHAOS_SCHEDULES`` entry on a 2+2 port cluster gives a
   well-formed trace with disjoint retry attempts; the controller's
   re-plans and resizes land as one ``CONTROL:*`` event each; with tracing
@@ -68,6 +72,17 @@ both = pytest.mark.parametrize("pkg", sorted(PKGS))
 LATENCY_TOL = 0.05
 #: the port's handoff steps, metered into stage_time_s without a span
 HANDOFF_STEPS = ("export", "checksum", "verify", "import")
+#: the port's sub-stage spans, in order, by the stage they split (the
+#: JAX package has none)
+SUB_STAGES = {
+    "DECODE_TICK": ("STAGE:decode.prepare", "STAGE:decode.launch",
+                    "STAGE:decode.read", "STAGE:decode.retire"),
+    "PREFILL": ("STAGE:prefill.launch", "STAGE:prefill.write",
+                "STAGE:prefill.read"),
+    "STAGE:append": ("STAGE:append.prepare", "STAGE:append.launch"),
+}
+#: attrs the port's engine adds to a span kind
+PORT_ATTRS = {"DECODE_TICK": ("h2d",), "EMBED": ("rows", "pad_rows")}
 
 
 # ---------------------------------------------------------------------------
@@ -388,17 +403,32 @@ def test_packages_export_and_attribute_alike(tmp_path):
 # traced serving against the JAX package
 # ---------------------------------------------------------------------------
 
+def _is_sub_stage(kind: str) -> bool:
+    return kind.startswith("STAGE:") and "." in kind
+
+
+def _shared_attrs(span):
+    """``span.attrs`` less those the port adds (None where none is left,
+    as the JAX package leaves them)."""
+    drop = PORT_ATTRS.get(span.kind, ())
+    if not span.attrs or not drop:
+        return span.attrs
+    return {k: v for k, v in span.attrs.items() if k not in drop} or None
+
+
 def _shape(tracer, reqs) -> list:
-    """Every committed span, oldest first, without its times; a span's
-    request is its index in ``reqs``."""
+    """Every committed span but the port's sub-stage spans, oldest first,
+    without its times or the port's attrs; a span's request is its index
+    in ``reqs``."""
     index = {r.rid: i for i, r in enumerate(reqs)}
     return [(s.kind, index.get(s.rid, s.rid), s.engine, s.tick, s.attempt,
-             s.attrs) for s in tracer.spans()]
+             _shared_attrs(s)) for s in tracer.spans()
+            if not _is_sub_stage(s.kind)]
 
 
 def _sequences(tracer, reqs) -> list:
     """Each request's spans in time order, without their times."""
-    return [[(s.kind, s.engine, s.tick, s.attempt, s.attrs)
+    return [[(s.kind, s.engine, s.tick, s.attempt, _shared_attrs(s))
              for s in tracer.spans_for(r.rid)] for r in reqs]
 
 
@@ -451,11 +481,13 @@ PRESETS = {
 }
 
 
+BASE = {"decode_slots": 3, "s_max": 96, "max_new_tokens": 6}
+
+
 @pytest.mark.parametrize("preset", sorted(PRESETS))
 def test_engine_spans_match_jax(stack, preset, tmp_path):
     gen, enc, corpus, questions = stack
-    base = {"decode_slots": 3, "s_max": 96, "max_new_tokens": 6,
-            **PRESETS[preset]}
+    base = {**BASE, **PRESETS[preset]}
     jt, tt = JT.SpanTracer(), TT.SpanTracer()
     jserver = JRAGServer(JRAGEngine(gen, enc, corpus,
                                     JEngineConfig(attn_impl="ref", **base)),
@@ -488,15 +520,119 @@ def test_engine_spans_match_jax(stack, preset, tmp_path):
     tslo, jslo = tserver.summary()["slo"], jserver.summary()["slo"]
     assert _key_tree(tslo) == _key_tree(jslo)
     assert tslo["n"] == len(treqs)
-    # tracing changes neither the tokens nor the host syncs
+    # tracing changes neither the tokens, the host syncs and copies, nor
+    # the stages timed: the sub-stage spans feed no stage counter
     plain = port_engine()
     preqs = [Request(question=q.copy()) for q in questions]
     plain.serve(preqs)
     assert [r.output for r in preqs] == [r.output for r in treqs]
     snap, traced = plain.metrics_snapshot(), tserver.engine.metrics_snapshot()
-    for key in ("host_syncs", "decode_host_syncs", "decode_steps"):
+    for key in ("host_syncs", "decode_host_syncs", "h2d_copies",
+                "decode_steps"):
         assert snap[key] == traced[key], key
+    assert traced["h2d_copies"] > 0
+    assert set(snap["stage_time_s"]) == set(traced["stage_time_s"])
+    assert _stage_counts(snap) == _stage_counts(traced)
+    # each engine-track stage's seconds are its spans' own
+    for stage, kind in (("decode", "DECODE_TICK"), ("embed", "EMBED"),
+                        ("retrieve", "RETRIEVE")):
+        spans = [s for s in tt.spans() if s.kind == kind]
+        assert traced["stage_time_s"][stage] == pytest.approx(
+            sum(s.t1 - s.t0 for s in spans), rel=1e-9)
+        assert _stage_counts(traced)[stage] == len(spans)
     assert "slo" not in RAGServer(plain).summary()
+
+
+def _stage_counts(snap) -> dict:
+    return {k.split(":", 1)[1]: h["count"]
+            for k, h in snap["histograms"].items()
+            if k.startswith("stage_seconds:")}
+
+
+@pytest.mark.parametrize("preset", sorted(PRESETS))
+def test_sub_stage_spans_tile_their_stage(stack, preset):
+    """Each sub-stage span lies inside a span of the stage it splits, on
+    the engine's track at that stage's tick, and a stage's sub-stage spans
+    follow one another in order, each beginning where the last ended."""
+    gen, enc, corpus, questions = stack
+    kw = {**BASE, **PRESETS[preset]}
+    tracer = TT.SpanTracer()
+    server = RAGServer(te.RAGEngine(_port(gen), _port(enc), corpus,
+                                    te.EngineConfig(**kw), device="cpu"),
+                       tracer=tracer)
+    for q in questions:
+        server.submit(q.copy())
+    server.run_until_idle()
+    spans = tracer.spans()
+    subs = [s for s in spans if _is_sub_stage(s.kind)]
+    chunked = bool(kw.get("prefill_chunk"))
+    extends = chunked or bool(kw.get("iterative_interval"))
+    assert {s.kind for s in subs} == set(
+        SUB_STAGES["DECODE_TICK"]
+        + (SUB_STAGES["STAGE:append"] if extends else ())
+        + (() if chunked else SUB_STAGES["PREFILL"]))
+    parent_of = {sub: parent for parent, kinds in SUB_STAGES.items()
+                 for sub in kinds}
+    for s in subs:
+        assert s.rid is None and s.engine == "engine0" and not s.attrs
+        assert s.t0 <= s.t1
+        # chunked prefill's chunks extend the cache as appends do
+        parents = (("STAGE:append", "PREFILL") if s.kind.startswith(
+            "STAGE:append.") else (parent_of[s.kind],))
+        assert any(p.kind in parents and p.t0 <= s.t0 and s.t1 <= p.t1
+                   and (p.kind != "DECODE_TICK" or p.tick == s.tick)
+                   for p in spans), s
+    # one run of the sub-stages a stage, in order and contiguous
+    for parent, kinds in SUB_STAGES.items():
+        run = [s for s in subs if s.kind in kinds]
+        assert len(run) % len(kinds) == 0, parent
+        for i in range(0, len(run), len(kinds)):
+            group = run[i:i + len(kinds)]
+            assert tuple(s.kind for s in group) == kinds
+            assert all(a.t1 == b.t0 for a, b in zip(group, group[1:]))
+    ticks = [s for s in spans if s.kind == "DECODE_TICK"]
+    assert len(ticks) == sum(s.kind == "STAGE:decode.prepare" for s in subs)
+
+
+@pytest.mark.parametrize("preset", sorted(PRESETS))
+def test_tick_and_embed_attrs_count_the_work(stack, preset):
+    """``DECODE_TICK`` carries its live rows ``n`` and its copies to the
+    device ``h2d``; ``EMBED`` its rows and the encoder's padding rows: the
+    values the served requests imply.  ``h2d_copies`` adds up the copies
+    of every path."""
+    gen, enc, corpus, questions = stack
+    kw = {**BASE, **PRESETS[preset]}
+    tracer = TT.SpanTracer()
+    engine = te.RAGEngine(_port(gen), _port(enc), corpus,
+                          te.EngineConfig(**kw), device="cpu")
+    encode = engine.metrics["h2d_copies"]        # the corpus's batches
+    server = RAGServer(engine, tracer=tracer)
+    reqs = [server.submit(q.copy()).request for q in questions]
+    server.run_until_idle()
+    ticks = [s.attrs for s in tracer.spans() if s.kind == "DECODE_TICK"]
+    # the paged step copies tokens, positions, block tables and the mask
+    assert all(a["h2d"] == 4 for a in ticks)
+    assert all(1 <= a["n"] <= kw["decode_slots"] for a in ticks)
+    # every answer token after the first is one row of one step
+    assert sum(a["n"] for a in ticks) == sum(len(r.output) - 1
+                                             for r in reqs)
+    assert all(set(a) == {"n", "h2d"} for a in ticks)
+    embeds = [s.attrs for s in tracer.spans() if s.kind == "EMBED"]
+    assert all(a["rows"] + a["pad_rows"] == te.EMBED_BATCH for a in embeds)
+    assert sum(a["rows"] for a in embeds) == \
+        engine.metrics["retrieved_queries"]
+    # admission embeds one question a request
+    assert sum(a == {"rows": 1, "pad_rows": te.EMBED_BATCH - 1}
+               for a in embeds) >= len(reqs)
+    # besides the ticks': an encoder batch's rows; a prefill's prompt and
+    # the indices of its fresh pages; an append's or a chunk's block row
+    # and tokens
+    kinds = [s.kind for s in tracer.spans()]
+    assert engine.metrics["h2d_copies"] - encode == (
+        sum(a["h2d"] for a in ticks)
+        + sum(a["rows"] + a["pad_rows"] for a in embeds) // te.EMBED_BATCH
+        + 3 * kinds.count("STAGE:prefill.write")
+        + 2 * kinds.count("STAGE:append.prepare"))
 
 
 def test_cluster_spans_match_jax(stack, tmp_path):
@@ -555,7 +691,7 @@ def test_cluster_spans_match_jax(stack, tmp_path):
     assert [h.output for h in outs] == [r.output for r in treqs]
     for pe, te_ in zip(plain.prefill_engines + plain.decode_engines,
                        cluster.prefill_engines + cluster.decode_engines):
-        for key in ("host_syncs", "decode_host_syncs"):
+        for key in ("host_syncs", "decode_host_syncs", "h2d_copies"):
             assert pe.metrics[key] == te_.metrics[key], key
     assert "slo" not in plain.group_summary()
 
@@ -666,19 +802,26 @@ def test_controller_events_land_on_the_trace(stack, how):
     assert all(_plain(s.attrs) for s in control)
 
 
-@pytest.mark.parametrize("target", ["engine", "cluster"])
+#: the collocated engines of the null-tracer test: chunked prefill, and
+#: whole prefills with iterative appends (the cluster prefills whole)
+NULL_ENGINES = {"engine": {"prefill_chunk": 8},
+                "iterative": {"iterative_interval": 2}}
+
+
+@pytest.mark.parametrize("target", ["cluster", "engine", "iterative"])
 def test_tracing_off_constructs_no_spans(stack, target, monkeypatch):
-    """Zero cost when off: with the default no-op tracer the serving path
-    never builds a ``Span``."""
+    """Zero cost when off: with the default no-op tracer the serving path,
+    its sub-stage spans included, never builds a ``Span``."""
     def boom(*a, **kw):
         raise AssertionError("Span constructed with tracing off")
 
     monkeypatch.setattr(TT, "Span", boom)
     gen, enc, corpus, questions = stack
-    if target == "engine":
+    if target in NULL_ENGINES:
         eng = te.RAGEngine(_port(gen), _port(enc), corpus,
                            te.EngineConfig(decode_slots=2, s_max=96,
-                                           max_new_tokens=4, prefill_chunk=8),
+                                           max_new_tokens=4,
+                                           **NULL_ENGINES[target]),
                            device="cpu")
         server = RAGServer(eng)
         engines = [eng]
