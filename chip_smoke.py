@@ -1340,24 +1340,15 @@ def check_flash_launches(engine, launches, prefills, searches) -> None:
                              f"prefills and {searches} query embeds")
 
 
-def _launch_counters() -> dict:
-    from repro_torch.kernels.decode_attention import ops as da
-    from repro_torch.kernels.flash_attention import ops as fa
-    from repro_torch.kernels.paged_attention import ops as pa
-    from repro_torch.kernels.pq_scan import ops as pq
-    return {"paged_decode_attention": pa.paged_decode_attention,
-            "pq_scan": pq.pq_scan, "decode_attention": da.decode_attention,
-            "flash_attention": fa.flash_attention,
-            "decode_attention_partial": da.decode_attention_partial}
-
-
 def reset_launches() -> None:
-    for fn in _launch_counters().values():
+    from repro_torch.kernels import launch_counters
+    for fn in launch_counters().values():
         fn.launches = 0
 
 
 def read_launches() -> dict:
-    return {name: fn.launches for name, fn in _launch_counters().items()}
+    from repro_torch.kernels import launch_counters
+    return {name: fn.launches for name, fn in launch_counters().items()}
 
 
 def check_served(engine, reqs, questions, snap,

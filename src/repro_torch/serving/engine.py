@@ -29,6 +29,12 @@ Hot path, as in the JAX engine:
   blocking copy that waits for the device's queue; slots that are not
   stepping write nothing
   (on the dense pool that replaces JAX's whole-cache step-mask merge).
+  Where JAX jit-compiles the step, the port replays it from a CUDA graph
+  (``repro_torch.serving.step_graph``) on a CUDA device with ``attn_impl=
+  "cuda"`` and the fused step, on the paged pool or the dense one: the
+  inputs are copied into static tensors, and the first tick runs the step
+  eagerly and captures it (``decode_graph_captures``, then
+  ``decode_graph_replays``).  Every other engine steps eagerly.
   Decode attention is a CUDA kernel on a CUDA device (``attn_impl=
   "cuda"``: paged-decode on the paged pool, dense decode on the dense
   one) or the reference masked softmax (``"ref"``).  With ``"cuda"``
@@ -71,6 +77,7 @@ from repro_torch.retrieval.backend import (ExactBackend, FallbackBackend,
 from repro_torch.serving.faults import EngineCrash, EngineHealth
 from repro_torch.serving.kv_cache import KVCachePool, PagedKVCachePool
 from repro_torch.serving.request import Request, State
+from repro_torch.serving.step_graph import StepGraph
 from repro_torch.serving.telemetry import (MONO, NULL_TRACER, Counter,
                                            MetricsRegistry, stage_kind)
 
@@ -216,7 +223,9 @@ class RAGEngine:
              "host_syncs": 0, "decode_host_syncs": 0,
              "h2d_copies": self.h2d,
              "cache_copy_bytes": 0, "capacity_stops": 0,
-             "degraded_answers": 0, "stage_time_s": {}})
+             "degraded_answers": 0,
+             "decode_graph_captures": 0, "decode_graph_replays": 0,
+             "stage_time_s": {}})
         self.tracer = NULL_TRACER
         self.trace_name = "engine0"
         self.tick_no = 0
@@ -230,6 +239,13 @@ class RAGEngine:
             "cuda" if self.device.type == "cuda" else "ref")
         self.paged_attn, self.dense_attn, self.seq_attn = \
             self._make_attn_impls()
+        # the fused step through the decode kernels on a GPU is replayed
+        # from a CUDA graph (``decode_logits``), on either pool
+        self.graph_decode = (self.device.type == "cuda"
+                             and self.attn_impl == "cuda"
+                             and cfg.fused_decode)
+        self._graph: StepGraph | None = None
+        self._static: list[torch.Tensor] | None = None   # the step's inputs
         self._prefill_buckets: set[int] = set()
         self._append_buckets: set[int] = set()
         # database embeddings (the paper's offline encode step)
@@ -414,10 +430,13 @@ class RAGEngine:
         finally:
             self._account(stage, time.monotonic() - t0)
 
-    def _tensor(self, a: np.ndarray) -> torch.Tensor:
-        """``a`` on the device, counted in ``h2d_copies``."""
+    def _tensor(self, a: np.ndarray,
+                out: torch.Tensor | None = None) -> torch.Tensor:
+        """``a`` on the device (copied into ``out`` if given), counted in
+        ``h2d_copies``."""
         self.h2d.value += 1
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        a = torch.from_numpy(np.ascontiguousarray(a))
+        return a.to(self.device) if out is None else out.copy_(a)
 
     def _embed_batched(self, tokens: np.ndarray,
                        bs: int = EMBED_BATCH) -> torch.Tensor:
@@ -707,35 +726,80 @@ class RAGEngine:
         if self.tracer.enabled:
             attrs = {"n": len(stepping)}
             h2d = self.h2d.value
+            replays = self.metrics["decode_graph_replays"]
         with self._timed("decode", attrs=attrs):
             self._decode_active(token_vec, stepping)
             if attrs is not None:
                 attrs["h2d"] = self.h2d.value - h2d
+                attrs["graph"] = self.metrics["decode_graph_replays"] - replays
 
     def decode_logits(self, token_vec: np.ndarray,
                       step_mask: np.ndarray) -> torch.Tensor:
         """One decode step over every slot of the pool: (B, V) logits on
         the device.  Slots with ``step_mask`` False write nothing and
-        their logits are to be ignored."""
+        their logits are to be ignored.
+
+        With ``graph_decode`` the inputs are copied into the engine's
+        static tensors and the step is replayed from its CUDA graph
+        (:meth:`_replay`); the logits are then the graph's output, which
+        the next replay overwrites."""
         paged = isinstance(self.pool, PagedKVCachePool)
-        tokens = self._tensor(token_vec)
-        # a copy: on the CPU the tensor would alias what advance() bumps
-        positions = self._tensor(self.pool.lengths.copy())
-        tables = self._tensor(self.pool.block_tables()) if paged else None
-        write_mask = self._tensor(step_mask)
+        # lengths copied: on the CPU the tensor would alias what advance()
+        # bumps
+        host = [token_vec, self.pool.lengths.copy()]
+        if paged:
+            host.append(self.pool.block_tables())
+        host.append(step_mask)
+        if self.graph_decode:
+            if self._static is None:
+                self._static = [torch.empty_like(torch.from_numpy(a),
+                                                 device=self.device)
+                                for a in host]
+            inputs = [self._tensor(a, out) for a, out in
+                      zip(host, self._static)]
+        else:
+            inputs = [self._tensor(a) for a in host]
         if self.tracer.enabled:
             self._lap("STAGE:decode.prepare")
-        if paged:
+        logits = (self._replay(inputs) if self.graph_decode
+                  else self._step(*inputs))
+        return logits[:, :self.gen.cfg.vocab_size]
+
+    def _step(self, tokens, positions, *rest) -> torch.Tensor:
+        """The model's decode step on device inputs (the block tables on
+        the paged pool, then the write mask): its (B, padded V) logits."""
+        if isinstance(self.pool, PagedKVCachePool):
+            tables, write_mask = rest
             logits, self.pool.cache = tr.paged_decode_step(
                 self.gen.params, self.pool.cache, tokens, positions, tables,
                 self.gen.cfg, attn_impl=self.paged_attn,
                 write_mask=write_mask)
         else:
+            write_mask, = rest
             logits, self.pool.cache = tr.decode_step(
                 self.gen.params, self.pool.cache, tokens, positions,
                 self.gen.cfg, attn_impl=self.dense_attn,
                 write_mask=write_mask)
-        return logits[:, :self.gen.cfg.vocab_size]
+        return logits
+
+    def _replay(self, inputs: list) -> torch.Tensor:
+        """The step on the static ``inputs`` from its CUDA graph.  The
+        graph is bound to the KV pool's storage (and to the weights):
+        while the pool's ``k`` and ``v`` stay where they were, a tick
+        replays it; else (and on the first tick) the tick runs the step
+        eagerly and captures it (``decode_graph_captures``)."""
+        key = (self.pool.cache["k"].data_ptr(),
+               self.pool.cache["v"].data_ptr())
+        g = self._graph
+        if g is not None and g.key == key:
+            g.replay()
+            self.metrics["decode_graph_replays"] += 1
+            return g.out
+        self._graph = None             # free the old graph's memory first
+        g = self._graph = StepGraph(lambda: self._step(*inputs), key)
+        self.metrics["decode_graph_captures"] += 1
+        logits, g.eager = g.eager, None
+        return logits
 
     def _decode_active(self, token_vec, stepping) -> None:
         """The tick's sub-stages: prepare (write targets, the mask and the

@@ -82,7 +82,8 @@ SUB_STAGES = {
     "STAGE:append": ("STAGE:append.prepare", "STAGE:append.launch"),
 }
 #: attrs the port's engine adds to a span kind
-PORT_ATTRS = {"DECODE_TICK": ("h2d",), "EMBED": ("rows", "pad_rows")}
+PORT_ATTRS = {"DECODE_TICK": ("h2d", "graph"),
+              "EMBED": ("rows", "pad_rows")}
 
 
 # ---------------------------------------------------------------------------
@@ -596,9 +597,10 @@ def test_sub_stage_spans_tile_their_stage(stack, preset):
 
 @pytest.mark.parametrize("preset", sorted(PRESETS))
 def test_tick_and_embed_attrs_count_the_work(stack, preset):
-    """``DECODE_TICK`` carries its live rows ``n`` and its copies to the
-    device ``h2d``; ``EMBED`` its rows and the encoder's padding rows: the
-    values the served requests imply.  ``h2d_copies`` adds up the copies
+    """``DECODE_TICK`` carries its live rows ``n``, its copies to the
+    device ``h2d`` and whether it replayed the CUDA graph ``graph``;
+    ``EMBED`` its rows and the encoder's padding rows: the values the
+    served requests imply.  ``h2d_copies`` adds up the copies
     of every path."""
     gen, enc, corpus, questions = stack
     kw = {**BASE, **PRESETS[preset]}
@@ -616,7 +618,9 @@ def test_tick_and_embed_attrs_count_the_work(stack, preset):
     # every answer token after the first is one row of one step
     assert sum(a["n"] for a in ticks) == sum(len(r.output) - 1
                                              for r in reqs)
-    assert all(set(a) == {"n", "h2d"} for a in ticks)
+    assert all(set(a) == {"n", "h2d", "graph"} for a in ticks)
+    # a CPU engine steps eagerly: no tick replays the CUDA graph
+    assert all(a["graph"] == 0 for a in ticks)
     embeds = [s.attrs for s in tracer.spans() if s.kind == "EMBED"]
     assert all(a["rows"] + a["pad_rows"] == te.EMBED_BATCH for a in embeds)
     assert sum(a["rows"] for a in embeds) == \
