@@ -5,10 +5,11 @@ calls ``RAGServer.submit(..., arrival_time=<due time>)`` and
 ``RAGServer.step()`` itself: an open loop submits each request when it is
 due, whatever is in flight; a closed loop keeps one request in flight per
 client.  Between steps it reads what each request served, to count the
-work of every prefill and decode step (``core/counts.py``), and the
-engine's stage counters at the window's edges.  With ``trace`` it also
-installs the program's ``SpanTracer`` for the window and traces a slice
-of it on the device (``core/trace.py``).
+work of every prefill and decode step (by the configuration's model
+family, ``bench/blocks/<block>.py``), and the engine's stage counters at
+the window's edges.  With ``trace`` it also installs the program's
+``SpanTracer`` for the window and traces a slice of it on the device
+(``core/trace.py``).
 """
 
 from __future__ import annotations
@@ -21,7 +22,6 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from bench.core import counts as C
 from bench.core import judge as J
 from bench.core import model as M
 from bench.core import prompt as P
@@ -77,11 +77,17 @@ def _delta(a: dict, b: dict) -> dict:
     return {k: b[k] - a.get(k, 0) for k in b}
 
 
+def _add(into: dict, parts: dict) -> None:
+    for name, value in parts.items():
+        into[name] = into.get(name, 0.0) + value
+
+
 class Driver:
-    def __init__(self, obs: Obs, server, engine, traffic, dims, device,
+    def __init__(self, obs: Obs, server, engine, traffic, family, device,
                  t_start):
         self.obs, self.server, self.engine = obs, server, engine
-        self.traffic, self.dims, self.device = traffic, dims, device
+        self.traffic, self.family, self.device = traffic, family, device
+        self.model = obs.cfg["model"]
         self.t_start = t_start
         self.serving = obs.cfg["serving"]
         self.k = int(obs.mix["k"])
@@ -94,7 +100,6 @@ class Driver:
         self.trace = None
         self.in_slice = False
         self.work = {"decode_flops": 0.0, "prefill_flops": 0.0,
-                     "decode_bound_s": 0.0, "prefill_bound_s": 0.0,
                      "decode_steps": 0, "prefills": 0}
         self.stage0 = None
 
@@ -138,20 +143,28 @@ class Driver:
             if not req.done:
                 still.append(rec)
         self.live = still
-        w, dm = self.work, self.dims
+        self.count(ctxs, prefill_lens)
+        return more
+
+    def count(self, ctxs: list, prefill_lens: list) -> None:
+        """One step's work: its FLOPs in the window, and in the traced
+        slice the least time of each kernel the family's path runs (a
+        step's prefills summed first, then added)."""
+        w, fam, m = self.work, self.family, self.model
         if self.in_window:
             if ctxs:
                 w["decode_steps"] += 1
-                w["decode_flops"] += C.decode_flops(dm, ctxs)
+                w["decode_flops"] += fam.decode_flops(m, ctxs)
             w["prefills"] += len(prefill_lens)
-            w["prefill_flops"] += sum(C.prefill_flops(dm, n)
+            w["prefill_flops"] += sum(fam.prefill_flops(m, n)
                                       for n in prefill_lens)
         if self.in_slice:
             if ctxs:
-                w["decode_bound_s"] += C.paged_decode_bound_s(dm, ctxs)
-            w["prefill_bound_s"] += sum(
-                C.flash_prefill_bound_s(dm, n) for n in prefill_lens)
-        return more
+                _add(w, fam.decode_bounds(m, ctxs))
+            step: dict = {}
+            for n in prefill_lens:
+                _add(step, fam.prefill_bounds(m, n))
+            _add(w, step)
 
     # ---------------- window edges and the traced slice ---------------------
 
@@ -182,16 +195,20 @@ class Driver:
         obs.stage_s, obs.stage_n = _delta(s0, s1), _delta(n0, n1)
 
     def _slice_start(self, now: float) -> None:
-        if (self.obs.traced and self.in_window and self.trace is None
-                and now >= self.slice_start and self.device.type == "cuda"):
-            self.trace = T.DeviceTrace(self.device)
-            self.trace.start()
+        """Open the traced slice once; the device is profiled only on a
+        CUDA device, the kernels' bounds are counted on any."""
+        if (self.obs.traced and self.in_window and not self.in_slice
+                and now >= self.slice_start):
+            if self.device.type == "cuda":
+                self.trace = T.DeviceTrace(self.device)
+                self.trace.start()
             self.in_slice = True
 
     def stop_slice(self) -> None:
         """End the traced slice: after the loop, outside the window."""
         if self.in_slice:
-            self.trace.stop()
+            if self.trace is not None:
+                self.trace.stop()
             self.in_slice = False
         self.obs.work = dict(self.work)
 
@@ -292,35 +309,36 @@ class Setup:
     traffic: TR.Traffic
     engine: object
     server: object
-    dims: C.Dims
+    family: object          # the model family's module (``spec.family``)
 
 
 def build(bm: dict, cell: str, seed: int, seconds: float, device,
           root=spec.ROOT, bench_dir=spec.BENCH_DIR, control: bool = False,
           mix_over: dict | None = None) -> Setup:
     """Weights and traffic from the seed, then the program's engine (which
-    encodes the corpus) behind a server.  ``control`` serves the
-    program's int8-weight path with TF32 on; ``mix_over`` overrides
-    fields of the traffic mix (the knee sweep's rates)."""
+    encodes the corpus) behind a server.  The served model is the
+    configuration's model family's (``spec.family``), the encoder the
+    dense one.  ``control`` serves the program's int8-weight path with
+    TF32 on; ``mix_over`` overrides fields of the traffic mix (the knee
+    sweep's rates)."""
     from repro_torch.models import transformer as tr
     from repro_torch.serving.engine import Component, EngineConfig, RAGEngine
     from repro_torch.serving.server import RAGServer
 
     wl = spec.workload(bm, cell)
     cfg = spec.load_config(bm, wl["config"], root)
+    fam = spec.family(cfg, bench_dir)
     mix = {**spec.load_traffic(wl["traffic"], bench_dir), **(mix_over or {})}
-    gen_cfg = M.program_config(cfg["model"], wl["config"])
-    enc_cfg = M.program_config(cfg["encoder"], wl["config"] + "-encoder")
+    m, name = cfg["model"], wl["config"]
+    enc_cfg = M.program_config(cfg["encoder"], name + "-encoder")
     gen_seed, enc_seed = M.component_seeds(seed)
-    gen_w = M.draw_weights(cfg["model"], gen_cfg.padded_vocab, gen_seed,
-                           device)
+    gen_w = fam.draw_weights(m, fam.program_config(m, name), gen_seed,
+                             device)
     enc_w = M.draw_weights(cfg["encoder"], enc_cfg.padded_vocab, enc_seed,
                            device, dtype=torch.float32)
-    traffic = TR.make_traffic(mix, cfg["corpus"], cfg["model"]["vocab_size"],
-                              seed, seconds)
-    gen_params = tr.TransformerParams(gen_w)
-    if control:
-        gen_params = tr.quantize_for_serving(gen_params)
+    traffic = TR.make_traffic(mix, cfg["corpus"], m["vocab_size"], seed,
+                              seconds)
+    gen_cfg, gen_params = fam.program_component(m, gen_w, name, control)
     torch.backends.cuda.matmul.allow_tf32 = control
     serving = cfg["serving"]
     ecfg = EngineConfig(
@@ -336,7 +354,7 @@ def build(bm: dict, cell: str, seed: int, seconds: float, device,
                        Component(enc_cfg, tr.TransformerParams(enc_w)),
                        traffic.corpus, ecfg, device=device)
     return Setup(cfg, mix, gen_w, enc_w, traffic, engine, RAGServer(engine),
-                 C.Dims.from_model(cfg["model"]))
+                 fam)
 
 
 def run_cell(bm: dict, cell: str, seed: int, seconds: float, trace: bool,
@@ -355,11 +373,11 @@ def run_cell(bm: dict, cell: str, seed: int, seconds: float, trace: bool,
     su = build(bm, cell, seed, seconds, device, root, bench_dir, control)
     cfg, mix, gen_w, enc_w, traffic = (su.cfg, su.mix, su.gen_w, su.enc_w,
                                        su.traffic)
-    engine, server = su.engine, su.server
+    engine, server, fam = su.engine, su.server, su.family
     obs = Obs(cell, cfg, mix, seconds, trace)
     if plant is not None:
         plant(engine)
-    drv = Driver(obs, server, engine, traffic, su.dims, device, t_start)
+    drv = Driver(obs, server, engine, traffic, fam, device, t_start)
     drv.warm_up()
     if trace and device.type == "cuda":
         T.prime(device)
@@ -405,7 +423,7 @@ def run_cell(bm: dict, cell: str, seed: int, seconds: float, trace: bool,
     if device.type == "cuda":
         torch.cuda.empty_cache()
     numbers = J.judge(cfg, mix, gen_w, enc_w, traffic.corpus, served, seed,
-                      device)
+                      device, fam.reference)
     numbers["unanswered"] = unanswered
     limits = {**mix["judge"]["limits"], "unanswered": 0}
     checks = {name: {"value": float(numbers[name]), "limit": float(lim)}

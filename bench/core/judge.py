@@ -25,7 +25,8 @@ by 4x or more (``PERF.md`` §2).
 The reference recomputes the database embeddings, the queries and the
 whole fed sequence from the benchmark's own inputs (weights, corpus,
 questions) and reads the program's outputs (documents and tokens) only
-to judge them.
+to judge them.  The encoder's reference is ``reference/lm.py``; the
+served model's is its family's (``bench/blocks/<block>.py`` names it).
 """
 
 from __future__ import annotations
@@ -84,8 +85,9 @@ def _encode_queries(enc_w, enc_m, queries, device):
 
 
 def judge(cfg: dict, mix: dict, gen_w: dict, enc_w: dict, corpus,
-          served: list[Served], seed: int, device) -> dict:
-    """The numbers compared, with how much each covered."""
+          served: list[Served], seed: int, device, model_ref) -> dict:
+    """The numbers compared, with how much each covered.  ``model_ref``
+    is the served model's reference module (its ``decoder_logits``)."""
     serving, k = cfg["serving"], int(mix["k"])
     interval = mix.get("iterative_interval")
     width = int(cfg["serving"]["iter_query_tokens"])
@@ -127,8 +129,8 @@ def judge(cfg: dict, mix: dict, gen_w: dict, enc_w: dict, corpus,
             seqs.append(torch.as_tensor(seq, device=device))
             wants.append(torch.as_tensor(want, device=device))
         n_tokens, gap_sum, missed = 0, 0.0, 0
-        logits_all = (ref.decoder_logits(gen_w, cfg["model"], seqs, wants)
-                      if sample else [])
+        logits_all = (model_ref.decoder_logits(gen_w, cfg["model"], seqs,
+                                               wants) if sample else [])
         for s, logits in zip(sample, logits_all):
             gap = token_gaps(logits, torch.as_tensor(s.out, device=device))
             gaps["logit_gap"] = max(gaps["logit_gap"], float(gap.max()))

@@ -4,8 +4,9 @@
         --trace <0|1>
 
 From the root of a checkout, on a machine with the CUDA devices the cell
-asks for (it exits non-zero without them, and without the program under
-``src/``).  The last line of standard output is one JSON object:
+asks for (it exits non-zero without them, without the program under
+``src/``, and where the cell's configuration names no model family that
+``bench/blocks/`` holds).  The last line of standard output is one JSON object:
 ``correct``, ``attempted``, ``failed``, ``metrics`` (the cell's end-to-end
 metrics, or with ``--trace 1`` its per-layer ones), ``device``, with
 ``--trace 1`` a ``breakdown``, and last ``checks``: each number compared
@@ -42,6 +43,11 @@ def main(argv=None) -> int:
     from bench.core import spec
     bm = spec.load_benchmark(ROOT)
     wl = spec.workload(bm, args.workload)
+    try:
+        spec.family(spec.load_config(bm, wl["config"], ROOT))
+    except spec.SpecError as e:
+        print(e, file=sys.stderr)
+        return 2
     import torch
     if not torch.cuda.is_available() or \
             torch.cuda.device_count() < int(wl["chips"]):

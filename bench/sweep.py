@@ -40,7 +40,7 @@ def main(argv=None) -> int:
     su = build(bm, args.workload, args.seed, args.seconds, device,
                mix_over={"rate_qps": args.rates[0]})
     Driver(Obs(args.workload, su.cfg, su.mix, args.seconds, False),
-           su.server, su.engine, su.traffic, su.dims, device,
+           su.server, su.engine, su.traffic, su.family, device,
            time.monotonic()).warm_up()
     for i, rate in enumerate(args.rates):
         mix = {**su.mix, "rate_qps": rate}
@@ -49,7 +49,7 @@ def main(argv=None) -> int:
                                   su.cfg["model"]["vocab_size"],
                                   args.seed + i + 1, args.seconds)
         obs = Obs(args.workload, su.cfg, mix, args.seconds, False)
-        drv = Driver(obs, su.server, su.engine, traffic, su.dims, device,
+        drv = Driver(obs, su.server, su.engine, traffic, su.family, device,
                      time.monotonic())
         drv.run_open(args.seconds)
         reqs = sorted((r.req for r in drv.recs

@@ -1,6 +1,8 @@
 """What the benchmark imports: never JAX or the JAX package, compared by
 whole top-level names (the program's ``repro_torch`` begins with the JAX
-package's ``repro``); the reference imports nothing of the program."""
+package's ``repro``), model families (``bench/blocks/``) included; the
+reference, and every reference a family names, imports nothing of the
+program."""
 
 import ast
 import shutil
@@ -43,6 +45,23 @@ def test_reference_imports_nothing_of_the_program():
                         "numpy"}, (path, tops)
 
 
+BLOCKS = sorted((BENCH / "blocks").glob("*.py"))
+
+
+def test_every_family_is_scanned():
+    assert BLOCKS and set(BLOCKS) <= set(SOURCES)
+
+
+@pytest.mark.parametrize("path", BLOCKS, ids=lambda p: p.stem)
+def test_family_reference_imports_nothing_of_the_program(path):
+    fam = spec.load_module(path, "bench_block_")
+    ref = spec.reference_path(fam.REFERENCE)
+    assert ref.is_file(), ref
+    tops = imported_top_levels(ref)
+    assert tops <= {"__future__", "contextlib", "math", "torch",
+                    "numpy"}, (ref, tops)
+
+
 def test_run_refuses_forbidden_top_level_names_only():
     import importlib.util
     mod_spec = importlib.util.spec_from_file_location("bench_run",
@@ -65,10 +84,14 @@ def test_run_refuses_forbidden_top_level_names_only():
 def test_harness_loads_no_jax_in_a_run_process():
     """Import every module a run imports, the program's serving stack
     with it, in a fresh process, and list what is loaded."""
-    code = ("import sys; sys.path[:0] = [%r, %r]\n"
+    code = ("import sys, json; sys.path[:0] = [%r, %r]\n"
             "import bench.core.cell, bench.core.judge, bench.core.trace\n"
             "import repro_torch.serving.server, "
             "repro_torch.serving.telemetry\n"
+            "from bench.core import spec\n"
+            "for p in (spec.BENCH_DIR / 'configs').glob('*.json'):\n"
+            "    cfg = json.loads(p.read_text())\n"
+            "    spec.family(cfg).program_config(cfg['model'], p.stem)\n"
             "bad = sorted({m for m in sys.modules "
             "if m.split('.')[0] in %r})\n"
             "print(bad)\n") % (str(spec.ROOT), str(spec.ROOT / "src"),

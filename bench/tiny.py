@@ -1,9 +1,10 @@
 """A copy of the benchmark at toy sizes, for the CPU tests.
 
 ``make(tmp)`` writes ``tmp/BENCHMARK.json`` and ``tmp/bench/{configs,
-workloads,metrics}`` from the real ones with every width, depth, slot
-count, corpus and length cut to a size the CPU runs in seconds; cells,
-metric readers and limits keep their names.  ``run_cell(..., root=tmp,
+workloads,metrics,blocks,reference}`` from the real ones with every width,
+depth, slot count, corpus and length cut to a size the CPU runs in
+seconds (the model's to its family's ``TINY``); cells, metric readers,
+families and limits keep their names.  ``run_cell(..., root=tmp,
 bench_dir=tmp / "bench", device="cpu")`` then drives the real harness.
 """
 
@@ -15,9 +16,6 @@ from pathlib import Path
 
 from bench.core import spec
 
-TINY_MODEL = dict(num_hidden_layers=2, hidden_size=64, num_attention_heads=4,
-                  num_key_value_heads=2, head_dim=16, intermediate_size=128,
-                  vocab_size=512)
 # limits of the toy copy, from its CPU readings: sound runs of every cell
 # over seeds 31-38 read logit_gap_mean <= 0.0006 and retrieval_gap 0; the
 # faults of test_bench_faults.py read logit_gap_mean 0.0083-3.2 (a state
@@ -30,9 +28,11 @@ TINY_ENCODER = dict(num_hidden_layers=2, hidden_size=32,
                     head_dim=16, intermediate_size=64, vocab_size=512)
 
 
-def tiny_config(cfg: dict) -> dict:
+def tiny_config(cfg: dict, bench_dir: Path = spec.BENCH_DIR) -> dict:
+    """``cfg`` at toy sizes; its model family is found under
+    ``bench_dir``."""
     cfg = json.loads(json.dumps(cfg))
-    cfg["model"].update(TINY_MODEL)
+    cfg["model"].update(spec.family(cfg, bench_dir).TINY)
     cfg["encoder"].update(TINY_ENCODER)
     cfg["corpus"].update(n_docs=64, doc_len=cfg["corpus"]["doc_len"] // 16)
     cfg["serving"].update(decode_slots=8, max_new_tokens=32,
@@ -64,11 +64,14 @@ def make(tmp, root: Path = spec.ROOT) -> dict:
     bench = tmp / "bench"
     for sub in ("configs", "workloads"):
         (bench / sub).mkdir(parents=True, exist_ok=True)
-    shutil.copytree(root / "bench" / "metrics", bench / "metrics",
-                    dirs_exist_ok=True)
+    for sub in ("metrics", "blocks", "reference"):
+        shutil.copytree(root / "bench" / sub, bench / sub,
+                        dirs_exist_ok=True,
+                        ignore=shutil.ignore_patterns("__pycache__"))
     bm = spec.load_benchmark(root)
     for c in bm["configs"]:
-        cfg = tiny_config(json.loads((root / c["file"]).read_text()))
+        cfg = tiny_config(json.loads((root / c["file"]).read_text()),
+                          root / "bench")
         (tmp / c["file"]).write_text(json.dumps(cfg))
     for w in bm["workloads"]:
         mix = tiny_traffic(spec.load_traffic(w["traffic"], root / "bench"))
