@@ -1,9 +1,11 @@
 """Model families found by name (``bench/blocks/<block>.py``): every
-configuration names one; the dense family counts the same work and draws
-the same weights as the dense code it wraps; a configuration without a
-family, or naming one that is not there, stops a run; and a second
-family, the dense decoder with Minitron-8B's squared-ReLU FFN, is served
-and judged through the real harness on the CPU from new files alone."""
+configuration names one; a traced toy run of every cell is correct and
+counts the work its family names; where the family is the dense one, it
+counts the same work and draws the same weights as the dense code it
+wraps; a configuration without a family, or naming one that is not
+there, stops a run; and a second family, the dense decoder with
+Minitron-8B's squared-ReLU FFN, is served and judged through the real
+harness on the CPU from new files alone."""
 
 import json
 import os
@@ -24,6 +26,12 @@ from bench.test_bench_imports import imported_top_levels
 
 BM = spec.load_benchmark()
 CONFIG_FILES = sorted((spec.BENCH_DIR / "configs").glob("*.json"))
+CELLS = [w["name"] for w in BM["workloads"]]
+# the dense code's numbers hold where the family is the dense one
+DENSE_FILES = [p for p in CONFIG_FILES
+               if json.loads(p.read_text())["model"].get("block") == "dense"]
+DENSE_CELLS = [c for c in CELLS if spec.load_config(
+    BM, spec.workload(BM, c)["config"])["model"].get("block") == "dense"]
 INTERFACE = ("TINY", "REFERENCE", "program_config", "draw_weights",
              "program_component", "prefill_flops", "decode_flops",
              "prefill_bounds", "decode_bounds")
@@ -61,7 +69,7 @@ def leaves(tree: dict, prefix: str = "") -> dict:
     return out
 
 
-@pytest.mark.parametrize("path", CONFIG_FILES, ids=lambda p: p.stem)
+@pytest.mark.parametrize("path", DENSE_FILES, ids=lambda p: p.stem)
 def test_dense_family_draws_the_same_weights(path):
     cfg = tiny.tiny_config(json.loads(path.read_text()))
     m = cfg["model"]
@@ -99,7 +107,7 @@ def parent_work(steps, m) -> dict:
     return w
 
 
-@pytest.mark.parametrize("cell", [w["name"] for w in BM["workloads"]])
+@pytest.mark.parametrize("cell", DENSE_CELLS)
 def test_dense_family_counts_the_same_work(cell, tmp_path, monkeypatch,
                                            one_thread):
     """A traced toy run (the slice is its whole window on the CPU): the
@@ -126,6 +134,27 @@ def test_dense_family_counts_the_same_work(cell, tmp_path, monkeypatch,
     for key in ("decode_flops", "prefill_flops", "decode_bound_s",
                 "prefill_bound_s"):
         assert work[key] > 0, key
+
+
+# ---------------- every family: the work it names, counted -----------------
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_traced_toy_run_counts_its_family_work(cell, tmp_path, one_thread):
+    """A traced toy run of each cell is correct and counts, above 0, the
+    FLOPs of its prefills and decode steps and every kernel bound its
+    family names."""
+    bm = tiny.make(tmp_path)
+    result, info = run_cell(bm, cell, 3_000_000_031, 1.5, True,
+                            device="cpu", root=tmp_path,
+                            bench_dir=tmp_path / "bench")
+    assert result["correct"], result["checks"]
+    cfg = spec.load_config(bm, spec.workload(bm, cell)["config"], tmp_path)
+    fam = spec.family(cfg, tmp_path / "bench")
+    m = cfg["model"]
+    bounds = set(fam.prefill_bounds(m, 8)) | set(fam.decode_bounds(m, [8]))
+    assert bounds
+    for key in ["decode_flops", "prefill_flops", *sorted(bounds)]:
+        assert info["work"].get(key, 0) > 0, key
 
 
 # ---------------- a missing family stops a run -----------------------------

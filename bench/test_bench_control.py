@@ -12,10 +12,8 @@ import pytest
 import torch
 
 from bench import tiny
-from bench.core import model as M
 from bench.core import spec
 from bench.core.judge import token_gaps
-from bench.reference import lm as ref
 
 CONFIGS = sorted(p.stem for p in (spec.BENCH_DIR / "configs").glob("*.json"))
 # the toy's own limit on logit_gap_mean, from its CPU readings at one
@@ -25,21 +23,23 @@ TOY_LIMIT = 0.0008
 
 
 def readings(name: str, seed: int) -> dict:
+    """Through the configuration's family: its weights, its program and
+    int8 control (``program_component``), its reference."""
     from repro_torch.models import transformer as tr
     path = spec.BENCH_DIR / "configs" / f"{name}.json"
-    m = tiny.tiny_config(json.loads(path.read_text()))["model"]
-    cfg = M.program_config(m, name)
-    w = M.draw_weights(m, cfg.padded_vocab, seed, "cpu")
+    cfg = tiny.tiny_config(json.loads(path.read_text()))
+    fam = spec.family(cfg)
+    m = cfg["model"]
+    w = fam.draw_weights(m, fam.program_config(m, name), seed, "cpu")
     toks = torch.randint(0, m["vocab_size"], (8, 96),
                          generator=torch.Generator().manual_seed(seed))
     out = {}
     with torch.no_grad():
-        ref_logits = torch.stack(ref.decoder_logits(
+        ref_logits = torch.stack(fam.reference.decoder_logits(
             w, m, list(toks), [torch.arange(96)] * 8))
-        for label, params in (
-                ("bf16", tr.TransformerParams(w)),
-                ("int8", tr.quantize_for_serving(tr.TransformerParams(w)))):
-            logits, _ = tr.forward(params, toks, cfg)
+        for label, control in (("bf16", False), ("int8", True)):
+            prog, params = fam.program_component(m, w, name, control)
+            logits, _ = tr.forward(params, toks, prog)
             first = logits[..., :m["vocab_size"]].float().argmax(-1)
             out[label] = float(token_gaps(ref_logits, first).mean())
     return out

@@ -3,26 +3,30 @@ CPU (the look for a chip skipped), sees ``correct`` come out false for
 each fault a serving cell can have, planted in the program: a decode
 step that leaves its state unchanged, half of the batch left out (its
 logits the mean of the rest's), a token altered where it is produced,
-retrieval answering other documents.  One cell of each loop, open and
-closed; the sound run of each is correct."""
+retrieval answering other documents.  Every cell of ``BENCHMARK.json``,
+whatever its model family; the sound run of each is correct."""
 
 import pytest
 import torch
 
 from bench import tiny
+from bench.core import spec
 from bench.core.cell import run_cell
 
 
 def state_unchanged(monkeypatch, engine):
-    from repro_torch.models import transformer as tr
-    step = tr.paged_decode_step
+    """The step's logits come back, its writes to the pool are undone:
+    through the engine's step, whatever model family it serves."""
+    logits_of = engine.decode_logits
 
-    def unchanged(params, cache, *args, **kw):
-        logits, _ = step(params, {k: v.clone() for k, v in cache.items()},
-                         *args, **kw)
-        return logits, cache
+    def unchanged(token_vec, step_mask):
+        before = {k: v.clone() for k, v in engine.pool.cache.items()}
+        logits = logits_of(token_vec, step_mask)
+        for k, v in engine.pool.cache.items():
+            v.copy_(before[k])
+        return logits
 
-    monkeypatch.setattr(tr, "paged_decode_step", unchanged)
+    monkeypatch.setattr(engine, "decode_logits", unchanged)
 
 
 def half_batch_left_out(monkeypatch, engine):
@@ -64,7 +68,7 @@ FAULTS = {"state_unchanged": state_unchanged,
           "half_batch_left_out": half_batch_left_out,
           "token_altered": token_altered,
           "answer_altered": answer_altered}
-CELLS = ["chatglm3-longctx-open", "chatglm3-iterative-closed"]
+CELLS = [w["name"] for w in spec.load_benchmark()["workloads"]]
 
 
 @pytest.fixture(scope="module")

@@ -1,8 +1,10 @@
 """The plain reference against the program at the configurations' toy
-widths, on seeded weights, on the CPU: ``tr.forward``, a
-``tr.paged_decode_step`` through a paged cache, the encoder and exact
-retrieval.  Both sides compute in float32 here, so they agree to float32
-rounding (a tolerance of 1e-4 of the largest value)."""
+widths, on seeded weights, on the CPU: ``tr.forward`` and a
+``tr.paged_decode_step`` through the program's paged pool, each served
+model through its family (``spec.family``: weights, program, reference),
+then the encoder and exact retrieval.  Both sides compute in float32
+here, so they agree to float32 rounding (a tolerance of 1e-4 of the
+largest value)."""
 
 import json
 
@@ -30,46 +32,66 @@ def close(a, b, tol=1e-4):
         (a - b).abs().max() / scale)
 
 
+def served_f32(name, seed):
+    """A configuration's toy model through its family: the ``model``
+    group, the family, the drawn weights in float32, the program's config
+    and parameters of them."""
+    cfg = tiny_cfg(name)
+    fam = spec.family(cfg)
+    m = cfg["model"]
+    w = f32(fam.draw_weights(m, fam.program_config(m, name), seed, "cpu"))
+    prog, params = fam.program_component(m, w, name, False)
+    return m, fam, w, prog, params
+
+
+def f32(tree: dict) -> dict:
+    return {k: f32(v) if isinstance(v, dict) else
+            (v.float() if v.is_floating_point() else v)
+            for k, v in tree.items()}
+
+
 @pytest.mark.parametrize("name", CONFIGS)
 def test_decoder_matches_program_forward(name):
     from repro_torch.models import transformer as tr
-    m = tiny_cfg(name)["model"]
-    cfg = M.program_config(m, name)
-    w = M.draw_weights(m, cfg.padded_vocab, 3, "cpu", dtype=torch.float32)
+    m, fam, w, prog, params = served_f32(name, 3)
     toks = torch.randint(0, m["vocab_size"], (1, 40),
                          generator=torch.Generator().manual_seed(0))
-    logits, _ = tr.forward(tr.TransformerParams(w), toks, cfg,
-                           compute_dtype=torch.float32)
-    got = ref.decoder_logits(w, m, [toks[0]], [torch.arange(40)])[0]
+    logits, _ = tr.forward(params, toks, prog, compute_dtype=torch.float32)
+    got = fam.reference.decoder_logits(w, m, [toks[0]],
+                                       [torch.arange(40)])[0]
     close(got, logits[0, :, :m["vocab_size"]])
 
 
 @pytest.mark.parametrize("name", CONFIGS)
 def test_decoder_matches_paged_decode_step(name):
-    """Prefill 10 tokens, lay the cache out in pages of 4 through a
-    shuffled block table, decode token 11 through the pool."""
+    """Prefill 10 tokens, install them in the program's paged pool in
+    pages of 4 (two one-page slots taken and freed first, so the slot's
+    pages come out of order), decode token 11 through its block table."""
     from repro_torch.models import transformer as tr
-    m = tiny_cfg(name)["model"]
-    cfg = M.program_config(m, name)
-    w = M.draw_weights(m, cfg.padded_vocab, 4, "cpu", dtype=torch.float32)
-    params = tr.TransformerParams(w)
+    from repro_torch.serving.kv_cache import PagedKVCachePool
+    m, fam, w, prog, params = served_f32(name, 4)
     seq = torch.randint(0, m["vocab_size"], (11,),
                         generator=torch.Generator().manual_seed(1))
-    _, cache = tr.prefill(params, seq[None, :10], cfg,
+    _, cache = tr.prefill(params, seq[None, :10], prog,
                           compute_dtype=torch.float32)
-    page, table = 4, [2, 0, 1]
-    pool = tr.make_paged_cache(cfg, 3, page, dtype=torch.float32,
-                               device="cpu")
-    for key in ("k", "v"):
-        for pos in range(10):
-            pool[key][:, table[pos // page], pos % page] = cache[key][:, 0,
-                                                                      pos]
+    pool = PagedKVCachePool(prog, 3, 12, page_size=4, spare_pages=2,
+                            dtype=torch.float32, device="cpu")
+    fillers = [pool.alloc(rid) for rid in (1, 2)]
+    for slot in fillers:
+        pool.write_prefix(slot, cache, 4)
+    for slot in fillers:
+        pool.release(slot)
+    slot = pool.alloc(0)
+    pool.write_prefix(slot, cache, 10)
+    pool.prepare_append(slot, 1)
+    table = pool.page_tables[slot]
+    assert len(table) == 3 and table != sorted(table), table
     logits, _ = tr.paged_decode_step(
-        params, pool, seq[10:11].to(torch.int32),
-        torch.tensor([10], dtype=torch.int32),
-        torch.tensor([table], dtype=torch.int32), cfg,
+        params, pool.cache, seq[10:11].to(torch.int32),
+        pool.positions()[slot:slot + 1],
+        torch.as_tensor(pool.block_tables()[slot:slot + 1]), prog,
         compute_dtype=torch.float32)
-    got = ref.decoder_logits(w, m, [seq], [torch.tensor([10])])[0]
+    got = fam.reference.decoder_logits(w, m, [seq], [torch.tensor([10])])[0]
     close(got, logits[:, :m["vocab_size"]])
 
 
@@ -109,8 +131,10 @@ def test_retrieval_gap_measures_how_far_below_the_kth():
 
 
 def test_tiny_copy_keeps_every_cell(tmp_path):
+    """Every cell's configuration at its family's toy sizes."""
     bm = tiny.make(tmp_path)
     for w in bm["workloads"]:
         cfg = json.loads((tmp_path / spec.config_entry(
             bm, w["config"])["file"]).read_text())
-        assert cfg["model"]["hidden_size"] == 64
+        toy = spec.family(cfg, tmp_path / "bench").TINY
+        assert {k: cfg["model"][k] for k in toy} == toy, w["name"]
