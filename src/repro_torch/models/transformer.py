@@ -10,10 +10,13 @@ place of ``jax.lax.scan``.  The FFN is dense or a mixture of experts
 Serving subset: ``forward`` (full sequence, optional KV collection),
 ``prefill``, ``encode``, the dense-cache entry points ``make_cache``,
 ``decode_step``, ``chunk_extend`` and ``greedy_generate``, the paged ones
-``make_paged_cache``, ``paged_decode_step`` and ``paged_chunk_extend``,
-and ``quantize_for_serving`` (int8 weights).  Training: ``loss_fn`` and
-``forward(..., remat=True)`` over a plain nested dict of parameters that
-require grad (``repro_torch.training.train_loop.init_state``).
+``make_paged_cache``, ``paged_decode_step``, ``paged_chunk_extend_batch``
+(chunks of several sequences in one forward: the serving engine appends a
+retrieval batch's documents with one call) and its one-row call
+``paged_chunk_extend``, and ``quantize_for_serving`` (int8 weights).
+Training: ``loss_fn`` and ``forward(..., remat=True)`` over a plain nested
+dict of parameters that require grad
+(``repro_torch.training.train_loop.init_state``).
 ``abstract_params`` and ``abstract_cache`` build the same trees on the
 meta device (shapes and dtypes, no storage) for the cell programs and the
 dry-run.  ``forward``'s ``sp_spec``, ``moe_ffn``'s ``"moe_dispatch"`` hint
@@ -28,9 +31,9 @@ Attention ops: ``forward``, ``prefill``, ``encode`` and
 ``greedy_generate`` take the full-sequence op ``attn_impl(q, k, v,
 causal)`` (the flash kernel's contract, unrepeated KV heads); the decode
 steps take their decode op.  ``None`` keeps the reference paths, which
-mirror JAX's einsums step for step.  ``chunk_extend`` and
-``paged_chunk_extend`` attend a chunk to a cache at an offset, which is
-not the flash kernel's function: they keep their plain attention.
+mirror JAX's einsums step for step.  ``chunk_extend`` and the paged
+chunk extends attend a chunk to a cache at an offset, which is not the
+flash kernel's function: they keep their plain attention.
 """
 
 from __future__ import annotations
@@ -743,7 +746,7 @@ def chunk_extend(params: TransformerParams, cache: dict, slot: int,
 # p % page.  JAX drops out-of-bounds scatter rows (mode="drop"); PyTorch has
 # no drop mode and an out-of-bounds index on CUDA is a device-side assert.
 # ``paged_decode_step`` keeps its indices in bounds on the device (no host
-# read); ``paged_chunk_extend`` takes host ints and writes only the rows JAX
+# read); the paged chunk extends take host ints and write only the rows JAX
 # keeps.
 
 def make_paged_cache(cfg: TransformerConfig, n_pages: int, page_size: int,
@@ -830,56 +833,108 @@ def paged_chunk_extend(params: TransformerParams, cache: dict,
                        block_row: torch.Tensor, tokens: torch.Tensor,
                        start_pos: int, n_valid: int, cfg: TransformerConfig,
                        compute_dtype=torch.bfloat16):
-    """Extend ONE sequence's paged cache with a chunk of tokens.
+    """Extend ONE sequence's paged cache with a chunk of tokens: the
+    one-row call of :func:`paged_chunk_extend_batch`.
 
     block_row: (M,) int32, the sequence's page table row.  tokens: (T,)
-    padded; only the first ``n_valid`` are real.  Chunk token i is written
-    at position ``start_pos + i`` (pad rows and positions past the table
-    are not written) and attends over the gathered logical view, so the
-    result matches feeding the tokens one decode step at a time.  Returns
-    (cache, logits of the last valid row (V,)); the pool is updated in
-    place.
+    padded; only the first ``n_valid`` are real.  Returns (cache, logits
+    of the last valid row (V,)); the pool is updated in place.
+    """
+    cache, logits = paged_chunk_extend_batch(
+        params, cache, block_row[None], tokens[None], [start_pos],
+        [n_valid], cfg, compute_dtype)
+    return cache, logits[0]
+
+
+#: f32 attention scores one group of a paged chunk extend's rows may hold
+#: (2 GiB: 8 rows of 512 tokens over 4,096 positions at 32 heads); larger
+#: batches attend a group of rows at a time, so the scores, their masked
+#: copy and the softmax stay a few GiB whatever the batch
+_ATTN_SCORES_BYTES = 1 << 31
+
+
+def paged_chunk_extend_batch(params: TransformerParams, cache: dict,
+                             block_rows: torch.Tensor, tokens: torch.Tensor,
+                             start_pos, n_valid, cfg: TransformerConfig,
+                             compute_dtype=torch.bfloat16):
+    """Extend B sequences' paged caches with a chunk each, in one forward.
+
+    block_rows: (B, M) int32, each sequence's page table row.  tokens:
+    (B, T) padded; ``start_pos`` and ``n_valid`` are B host ints, and only
+    row b's first ``n_valid[b]`` tokens are real.  Row b's token i is
+    written at position ``start_pos[b] + i`` (pad rows and positions past
+    the table are not written) and attends over row b's gathered logical
+    view under its own causal mask, so row b's result is the one-row
+    call's, and matches feeding its tokens one decode step at a time.
+    The embedding, norms, RoPE, projections and FFN run once over the
+    B x T tokens (an MoE FFN dispatches each row's tokens to its own
+    capacity, as B one-row calls do), and the writes are one
+    ``index_copy_`` per K and V a layer over the rows' kept tokens; the
+    positions and write targets are built on the device, with no copy
+    from the host.  The attention runs over groups of rows whose f32
+    scores fit ``_ATTN_SCORES_BYTES``, each group reading its rows' tables
+    only up to the page of its last position.  The rows' write ranges
+    must lie in pages no other row reads (the paged pool's
+    ``prepare_append`` makes them so).
+    Returns (cache, logits of each row's last valid token (B, V)); the
+    pool is updated in place.
     """
     _, P, page = cache["k"].shape[:3]
-    M = block_row.shape[0]
+    B, M = block_rows.shape
     S = M * page
-    T = tokens.shape[0]
-    start_pos, n_valid = int(start_pos), int(n_valid)
+    T = tokens.shape[1]
+    h_kv, d = cfg.n_kv_heads, cfg.d_head
+    starts = [int(s) for s in start_pos]
+    valid = [int(n) for n in n_valid]
     dev = tokens.device
     embed = cm.maybe_dequant(params["embed"], compute_dtype)
-    x = embed[tokens][None]                                       # (1, T, d)
+    x = embed[tokens]                                             # (B, T, d)
     offs = torch.arange(T, device=dev)
-    positions = (start_pos + offs)[None]                          # (1, T)
-    # rows that JAX would not drop: real tokens whose position is in the table
-    n_rows = max(0, min(n_valid, M * page - start_pos, T))
-    wpos = start_pos + offs[:n_rows]
-    flat = block_row.long()[wpos // page] * page + wpos % page
+    positions = torch.stack([s + offs for s in starts])           # (B, T)
+    # rows that JAX would not drop: real tokens whose position is in the
+    # table, as indices into the B x T tokens
+    kept = [max(0, min(n, S - s, T)) for s, n in zip(starts, valid)]
+    sel = torch.cat([b * T + offs[:n] for b, n in enumerate(kept)])
+    wpos = positions.reshape(-1)[sel]
+    flat = block_rows.long()[sel // T, wpos // page] * page + wpos % page
+    # no token attends past its own position, so a group of rows reads
+    # its tables only up to the page of the group's last position: the
+    # masked tail beyond it carries no weight
+    step = max(1, _ATTN_SCORES_BYTES // (cfg.n_heads * T * S * 4))
+    groups = []
+    for a in range(0, B, step):
+        b = min(a + step, B)
+        live = min(M, -(-(max(starts[a:b]) + T) // page))
+        mask = (torch.arange(live * page, device=dev)[None, None, None, :]
+                <= positions[a:b, None, :, None])           # (b-a,1,T,span)
+        groups.append((a, b, block_rows[a:b, :live], mask))
     scale = 1.0 / math.sqrt(cfg.d_head)
-    mask = (torch.arange(S, device=dev)[None, None, None, :]
-            <= positions[0][None, None, :, None])
     layers = params["layers"]
     for i in range(cfg.n_layers):
         lp = layer_params(layers, i)
         kc, vc = cache["k"][i], cache["v"][i]
         xn = cm.rms_norm(x, lp["ln1"], cfg.norm_eps)
         q, k_new, v_new = _qkv(xn, lp, cfg, positions, compute_dtype)
-        kf = kc.view(P * page, cfg.n_kv_heads, cfg.d_head)
-        vf = vc.view(P * page, cfg.n_kv_heads, cfg.d_head)
-        kf.index_copy_(0, flat, k_new[0, :n_rows].to(kf.dtype))
-        vf.index_copy_(0, flat, v_new[0, :n_rows].to(vf.dtype))
-        kg = kc[block_row].reshape(1, S, cfg.n_kv_heads, cfg.d_head)
-        vg = vc[block_row].reshape(1, S, cfg.n_kv_heads, cfg.d_head)
-        kr = cm.repeat_kv(kg.to(compute_dtype), cfg.q_per_kv)
-        vr = cm.repeat_kv(vg.to(compute_dtype), cfg.q_per_kv)
-        scores = torch.einsum("bqhd,bkhd->bhqk", q, kr).float() * scale
-        scores = torch.where(mask, scores, -math.inf)
-        probs = torch.softmax(scores, dim=-1).to(q.dtype)
-        out = torch.einsum("bhqk,bkhd->bqhd", probs, vr)
+        for c, new in ((kc, k_new), (vc, v_new)):
+            f = c.view(P * page, h_kv, d)
+            f.index_copy_(0, flat, new.reshape(B * T, h_kv, d)
+                          .index_select(0, sel).to(f.dtype))
+        outs = []
+        for a, b, tables, mask in groups:
+            kg = kc[tables].reshape(b - a, -1, h_kv, d)
+            vg = vc[tables].reshape(b - a, -1, h_kv, d)
+            kr = cm.repeat_kv(kg.to(compute_dtype), cfg.q_per_kv)
+            vr = cm.repeat_kv(vg.to(compute_dtype), cfg.q_per_kv)
+            scores = torch.einsum("bqhd,bkhd->bhqk", q[a:b],
+                                  kr).float() * scale
+            scores = torch.where(mask, scores, -math.inf)
+            probs = torch.softmax(scores, dim=-1).to(q.dtype)
+            outs.append(torch.einsum("bhqk,bkhd->bqhd", probs, vr))
+        out = torch.cat(outs) if len(outs) > 1 else outs[0]
         wo = cm.maybe_dequant(lp["wo"], compute_dtype)
-        x = x + (out.reshape(1, T, cfg.n_heads * cfg.d_head) @ wo).to(x.dtype)
-        h, _ = _ffn(cm.rms_norm(x, lp["ln2"], cfg.norm_eps), lp, cfg,
-                    compute_dtype)
-        x = x + h
+        x = x + (out.reshape(B, T, cfg.n_heads * d) @ wo).to(x.dtype)
+        x = x + _ffn(cm.rms_norm(x, lp["ln2"], cfg.norm_eps), lp, cfg,
+                     compute_dtype)[0]
     xf = cm.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    last = xf[0, max(n_valid - 1, 0)]
-    return cache, _head(params, last, compute_dtype)             # (V,)
+    last = torch.stack([xf[b, max(n - 1, 0)] for b, n in enumerate(valid)])
+    return cache, _head(params, last, compute_dtype)             # (B, V)

@@ -50,9 +50,13 @@ Hot path, as in the JAX engine:
   False`` keeps the pre-fusion path: argmax on the host, and the
   whole-cache copy JAX makes there counted in ``cache_copy_bytes``.
 * Iteratively retrieved context and chunked prompt prefill share one
-  bucketed chunk-extend forward (``tr.paged_chunk_extend``; dense:
+  bucketed chunk-extend forward (``tr.paged_chunk_extend_batch``; dense:
   ``tr.chunk_extend``), with plain attention: a chunk attending to a
-  cache at an offset is not the flash kernel's function.
+  cache at an offset is not the flash kernel's function.  On the paged
+  pool a retrieval batch's appends are one forward over all of its rows
+  (one per prompt bucket; ``append_calls``, ``append_rows``), each row
+  through its own block row; a chunked prefill extends one slot a chunk,
+  and the dense pool one slot a forward.
 
 PyTorch runs eagerly, so where the JAX engine jit-compiles one program
 per prompt bucket, the port just runs the forward; ``prefill_compiles``
@@ -220,6 +224,7 @@ class RAGEngine:
              "retrieval_batches": 0, "retrieved_queries": 0,
              "prefills": 0,
              "prefill_compiles": 0, "append_compiles": 0,
+             "append_calls": 0, "append_rows": 0,
              "host_syncs": 0, "decode_host_syncs": 0,
              "h2d_copies": self.h2d,
              "cache_copy_bytes": 0, "capacity_stops": 0,
@@ -582,7 +587,7 @@ class RAGEngine:
                         attempt=req.retries + req.migrations,
                         attrs={"tokens": len(piece), "cursor": cursor,
                                "prompt_tokens": len(req.prompt)})
-                logits = self._paged_extend(slot, piece)
+                logits = self._paged_extend([(slot, piece)])[0][0]
                 cursor += len(piece)
                 if cursor >= len(req.prompt):
                     del self.prefilling[slot]
@@ -607,53 +612,65 @@ class RAGEngine:
 
     # ---------------- decode loop ------------------------------------------
 
-    def _append_tokens(self, slot: int, tokens: np.ndarray) -> None:
-        """Append retrieved content into a slot's cache (iteration
-        prefill) with one bucketed chunk-extend forward."""
-        t = len(tokens)
-        if t == 0:
-            return
-        if isinstance(self.pool, PagedKVCachePool):
-            self._paged_extend(slot, np.asarray(tokens, np.int32))
-            return
+    def _count_bucket(self, t: int) -> int:
+        """``t`` tokens' power-of-two bucket, counted in ``append_compiles``
+        the first time it is seen (JAX compiles one program a bucket)."""
         bucket = bucket_len(t)
         if bucket not in self._append_buckets:
             self._append_buckets.add(bucket)
             self.metrics["append_compiles"] += 1
-        padded = np.zeros(bucket, np.int32)
+        return bucket
+
+    def _append_tokens(self, slot: int, tokens: np.ndarray) -> None:
+        """Append retrieved content into a dense slot's cache (iteration
+        prefill) with one bucketed chunk-extend forward."""
+        t = len(tokens)
+        padded = np.zeros(self._count_bucket(t), np.int32)
         padded[:t] = tokens
         self.pool.cache = tr.chunk_extend(
             self.gen.params, self.pool.cache, slot, self._tensor(padded),
             int(self.pool.lengths[slot]), t, self.gen.cfg)
         self.pool.lengths[slot] += t
 
-    def _paged_extend(self, slot: int, tokens: np.ndarray) -> torch.Tensor:
-        """Allocate/COW the pages the write range touches, then one
-        ``tr.paged_chunk_extend`` per power-of-two bucket writes the
-        chunk.  Returns the last valid row's logits (left on the device;
-        only chunked prefill's final chunk reads them)."""
+    def _paged_extend(self, rows) -> list[torch.Tensor]:
+        """Extend the caches of distinct slots, ``rows`` of (slot, tokens):
+        allocate/COW the pages each write range touches, then one
+        ``tr.paged_chunk_extend_batch`` per power-of-two bucket writes the
+        bucket's rows, with two copies to the device (its block rows and
+        its padded tokens).  Returns each call's (rows, V) logits of its
+        rows' last valid tokens (left on the device; only chunked
+        prefill's final chunk reads them)."""
         tracer = self.tracer
         if tracer.enabled:
             self._lap()
-        t = len(tokens)
-        self.pool.prepare_append(slot, t)
-        bucket = bucket_len(t)
-        if bucket not in self._append_buckets:
-            self._append_buckets.add(bucket)
-            self.metrics["append_compiles"] += 1
-        padded = np.zeros(bucket, np.int32)
-        padded[:t] = tokens
-        row = self._tensor(self.pool.block_row(slot))
-        chunk = self._tensor(padded)
+        groups: dict[int, list] = {}
+        for slot, tokens in rows:
+            self.pool.prepare_append(slot, len(tokens))
+            groups.setdefault(self._count_bucket(len(tokens)), []).append(
+                (slot, tokens))
+        tables = self.pool.block_tables()
+        calls = []
+        for bucket, group in groups.items():
+            slots = [slot for slot, _ in group]
+            padded = np.zeros((len(group), bucket), np.int32)
+            for j, (_, tokens) in enumerate(group):
+                padded[j, :len(tokens)] = tokens
+            calls.append((self._tensor(tables[slots]), self._tensor(padded),
+                          [int(self.pool.lengths[s]) for s in slots],
+                          [len(tokens) for _, tokens in group]))
         if tracer.enabled:
             self._lap("STAGE:append.prepare")
-        self.pool.cache, logits = tr.paged_chunk_extend(
-            self.gen.params, self.pool.cache, row, chunk,
-            int(self.pool.lengths[slot]), t, self.gen.cfg)
-        self.pool.lengths[slot] += t
+        out = []
+        for block_rows, chunk, starts, n_valid in calls:
+            self.pool.cache, logits = tr.paged_chunk_extend_batch(
+                self.gen.params, self.pool.cache, block_rows, chunk, starts,
+                n_valid, self.gen.cfg)
+            out.append(logits)
+        for slot, tokens in rows:
+            self.pool.lengths[slot] += len(tokens)
         if tracer.enabled:
             self._lap("STAGE:append.launch")
-        return logits
+        return out
 
     def _iter_query(self, req: Request) -> np.ndarray:
         """Fixed-width iterative-retrieval query: the last
@@ -678,6 +695,7 @@ class RAGEngine:
             self.metrics["retrieval_batches"] += 1
             for req in batch:
                 self.note_retrieval_degraded(req)
+            appends = []
             for req, docs in zip(batch, ids):
                 if req.state is not State.WAIT_RETRIEVAL:
                     continue                    # finished (EOS) while queued
@@ -696,9 +714,31 @@ class RAGEngine:
                     room = (self.pool.s_max
                             - int(self.pool.lengths[req.slot]) - remaining)
                     if room > 0:
-                        with self._timed("append"):
-                            self._append_tokens(req.slot, new_ctx[:room])
+                        appends.append((req.slot, new_ctx[:room]))
                 req.state = State.DECODE
+            if appends:
+                self._append_batch(appends)
+
+    def _append_batch(self, rows) -> None:
+        """Append a retrieval batch's documents, ``rows`` of (slot,
+        tokens), into their slots' caches (iteration prefill) under one
+        ``append`` stage: on the paged pool one chunk-extend forward a
+        bucket over all of the rows, on the dense pool one a row."""
+        attrs = None
+        if self.tracer.enabled:
+            attrs = {"rows": len(rows),
+                     "tokens": sum(len(tokens) for _, tokens in rows)}
+        with self._timed("append", attrs=attrs):
+            if isinstance(self.pool, PagedKVCachePool):
+                calls = len(self._paged_extend(rows))
+            else:
+                for slot, tokens in rows:
+                    self._append_tokens(slot, tokens)
+                calls = len(rows)
+            if attrs is not None:
+                attrs["calls"] = calls
+        self.metrics["append_calls"] += calls
+        self.metrics["append_rows"] += len(rows)
 
     def _decode_step(self) -> None:
         token_vec = np.zeros(self.pool.n_slots, np.int32)

@@ -509,9 +509,6 @@ class PagedKVCachePool:
                 bt[s, :len(table)] = table
         return bt
 
-    def block_row(self, slot: int) -> np.ndarray:
-        return self.block_tables()[slot]
-
     def positions(self) -> torch.Tensor:
         # a copy: on the CPU as_tensor would alias the lengths advance() bumps
         return torch.tensor(self.lengths, device=self.device)

@@ -147,7 +147,17 @@ PRESETS = {
     "prefill_chunk": {"prefill_chunk": 8},
     "iterative": {"iterative_interval": 3, "retrieval_batch": 2,
                   "max_new_tokens": 9},
+    # every slot retrieves at once: a batch's rows append in one call
+    "iterative_batch": {"iterative_interval": 3, "retrieval_batch": 3,
+                        "max_new_tokens": 9},
 }
+
+
+def _appends(snap) -> int:
+    """The engine's ``append`` stages: one a request that appended in the
+    JAX engine, one a retrieval batch that appended in the port's."""
+    h = snap["histograms"].get("stage_seconds:append")
+    return h["count"] if h else 0
 
 
 @pytest.mark.parametrize("preset", sorted(PRESETS))
@@ -163,6 +173,12 @@ def test_engine_matches_jax_ref(stack, preset):
                 "pages_cow", "pages_evicted"):
         assert ts[key] == js[key], key
     assert set(ts["stage_time_s"]) == set(js["stage_time_s"])
+    # a retrieval batch's appends are one chunk-extend forward (its rows'
+    # documents share one bucket here)
+    assert ts["append_rows"] == _appends(js)
+    assert ts["append_calls"] == _appends(ts)
+    if PRESETS[preset].get("retrieval_batch", 1) >= 3:
+        assert ts["append_calls"] < ts["append_rows"]
 
 
 def test_kernel_wrapper_as_attention_gives_the_same_tokens(stack):

@@ -249,29 +249,155 @@ def test_paged_decode_step_kernel_plain_version_agrees(model):
                                rtol=F32_TOL, atol=F32_TOL)
 
 
+#: (table row, start, n_valid) of each row of a chunk extend, T = 8 on a
+#: table of 3 pages of 4: a chunk inside the table; one cut at its end; a
+#: batch of a page-aligned row with pad tokens, a mid-page row that
+#: crosses a page, and a row cut at the end of its table; and a batch
+#: whose positions end in the table's second page, so the attention reads
+#: two of its three pages
+EXTENDS = {"inside": [(0, 5, 6)], "past_table": [(0, 9, 8)],
+           "batch": [(0, 4, 3), (1, 6, 6), (2, 9, 8)],
+           "batch_head": [(0, 0, 3), (1, 0, 8), (2, 0, 5)]}
+#: the batch with room for the f32 scores of 1 or 2 rows: its attention
+#: runs over groups of that many rows, and the rest last
+EXTENDS.update({f"batch_by_{g}": EXTENDS["batch"] for g in (1, 2)})
+
+
+def _extend_tokens(rows, seed=9):
+    rng = np.random.default_rng(seed)
+    tokens = np.zeros((len(rows), 8), np.int32)
+    for j, (_, _, n_valid) in enumerate(rows):
+        tokens[j, :n_valid] = rng.integers(0, 96, n_valid)
+    return tokens
+
+
+def _extend_each(tparams, tcfg, tdt, cache, tables, rows, tokens):
+    """One ``paged_chunk_extend`` a row, in order: (cache, (B, V) logits)."""
+    logits = []
+    for (r, start, n_valid), toks in zip(rows, tokens):
+        cache, lg = tr.paged_chunk_extend(tparams, cache,
+                                          torch.tensor(tables[r]),
+                                          torch.tensor(toks), start, n_valid,
+                                          tcfg, tdt)
+        logits.append(lg)
+    return cache, torch.stack(logits)
+
+
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-@pytest.mark.parametrize("start,n_valid", [(5, 6), (9, 8)],
-                         ids=["inside", "past_table"])
-def test_paged_chunk_extend(model, dt, start, n_valid):
+@pytest.mark.parametrize("case", sorted(EXTENDS))
+def test_paged_chunk_extend(model, dt, case, monkeypatch):
     """Pad rows and rows past the table are not written; the returned
-    last-row logits and the pool agree with JAX."""
+    last-row logits and the pool agree with JAX's one call a row, which
+    attends over the whole table.  A batch of rows in one
+    ``paged_chunk_extend_batch`` (each row's last position in the page of
+    the batch's, so a row alone reads the pages the batch reads) writes
+    the pool the port's one call a row writes, byte for byte, and gives
+    each row's logits; those differ at most by the rounding of the head's
+    GEMM, which the CPU's BLAS sums in another order for B rows than for
+    one (a few float32 steps, or one bfloat16 step, of a logit).  With
+    room for g rows' f32 scores the softmax sees groups of g rows, and
+    the results are the same."""
     jdt, tdt, tol = DTYPES[dt]
     jcfg, jparams, tcfg, tparams = model
     pool, tables, _, _ = _paged_problem(jcfg, seed=9)
-    row = tables[0]
-    tokens = np.zeros(8, np.int32)
-    tokens[:n_valid] = np.random.default_rng(9).integers(0, 96, n_valid)
-    jc, jl = jtr.paged_chunk_extend(
-        jparams, {k: jnp.asarray(v, jdt) for k, v in pool.items()},
-        jnp.asarray(row), jnp.asarray(tokens), jnp.asarray(start, jnp.int32),
-        jnp.asarray(n_valid, jnp.int32), jcfg, jdt)
+    rows = EXTENDS[case]
+    tokens = _extend_tokens(rows)
+    # "batch_by_<g>": room for the f32 scores of g rows
+    g = int(case.rsplit("_", 1)[1]) if case.startswith("batch_by_") else 0
+    seen, softmax = [], torch.softmax
+    if g:
+        S = tables.shape[1] * pool["k"].shape[2]
+        monkeypatch.setattr(tr, "_ATTN_SCORES_BYTES",
+                            g * tcfg.n_heads * tokens.shape[1] * S * 4)
+    jc = {k: jnp.asarray(v, jdt) for k, v in pool.items()}
+    jl = []
+    for (r, start, n_valid), toks in zip(rows, tokens):
+        jc, lg = jtr.paged_chunk_extend(
+            jparams, jc, jnp.asarray(tables[r]), jnp.asarray(toks),
+            jnp.asarray(start, jnp.int32), jnp.asarray(n_valid, jnp.int32),
+            jcfg, jdt)
+        jl.append(np.asarray(lg, np.float32))
     tcache = {k: torch.tensor(v).to(tdt) for k, v in pool.items()}
-    tc, tl = tr.paged_chunk_extend(tparams, tcache, torch.tensor(row),
-                                   torch.tensor(tokens), start, n_valid,
-                                   tcfg, tdt)
-    _close(tl, jl, tol)
+    each = {k: v.clone() for k, v in tcache.items()}
+
+    def spy(x, *a, **kw):
+        seen.append(x.shape[0])             # the rows of a group
+        return softmax(x, *a, **kw)
+
+    monkeypatch.setattr(torch, "softmax", spy)
+    tc, tl = tr.paged_chunk_extend_batch(
+        tparams, tcache, torch.tensor(tables[[r for r, _, _ in rows]]),
+        torch.tensor(tokens), [start for _, start, _ in rows],
+        [n_valid for _, _, n_valid in rows], tcfg, tdt)
+    monkeypatch.setattr(torch, "softmax", softmax)
+    groups = {0: [len(rows)], 1: [1, 1, 1], 2: [2, 1]}[g]
+    assert seen == groups * tcfg.n_layers
+    assert tc is tcache and tl.shape == (len(rows), tcfg.padded_vocab)
+    _close(tl, np.stack(jl), tol)
     for k in ("k", "v"):
         _close(tc[k], jc[k], tol)
+    each, el = _extend_each(tparams, tcfg, tdt, each, tables, rows, tokens)
+    for k in ("k", "v"):
+        assert torch.equal(tc[k], each[k]), k
+    head_tol = 1e-6 if dt == "f32" else 2 ** -8
+    torch.testing.assert_close(tl, el, rtol=head_tol, atol=head_tol)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_paged_chunk_extend_batch_after_copy_on_write(model, dt):
+    """Three slots of the paged pool hold one prompt of 10 tokens, its two
+    full pages shared; slots 1 and 2 are cut back to 6 and 4 tokens, so
+    their appends start in the shared page and ``prepare_append`` copies
+    it for each.  Preparing every row and then one
+    ``paged_chunk_extend_batch`` leaves the pool's tables and counters as
+    preparing and extending one row at a time does, and its bytes and
+    each row's logits to the rounding of sums over another extent."""
+    from repro_torch.serving.kv_cache import PagedKVCachePool
+    _, tdt, _ = DTYPES[dt]
+    _, _, tcfg, tparams = model
+    prompt = np.random.default_rng(3).integers(0, 96, 10).astype(np.int32)
+    _, _aux, prefix = tr.forward(tparams, torch.tensor(prompt)[None], tcfg,
+                                 tdt, collect_cache=True)
+    # slot 0 appends in its private tail page and crosses into a fresh
+    # one; slot 1 starts mid-page, slot 2 page-aligned, both in the
+    # shared page, and both cross into their tails
+    lengths, lens = (10, 6, 4), (3, 6, 8)
+    tokens = _extend_tokens([(0, 0, n) for n in lens], seed=4)
+    pools = []
+    for _ in range(2):
+        pool = PagedKVCachePool(tcfg, 3, 24, page_size=4, dtype=tdt,
+                                device="cpu")
+        for rid, length in enumerate(lengths):
+            slot = pool.alloc(rid)
+            pool.write_prefix(slot, prefix, len(prompt), tokens=prompt)
+            pool.lengths[slot] = length
+        pools.append(pool)
+    batch, each = pools
+    assert batch.metrics["pages_shared"] == 4     # two full pages, twice
+    for slot, n in enumerate(lens):
+        batch.prepare_append(slot, n)
+    batch.cache, tl = tr.paged_chunk_extend_batch(
+        tparams, batch.cache, torch.tensor(batch.block_tables()),
+        torch.tensor(tokens), list(lengths), list(lens), tcfg, tdt)
+    el = []
+    for slot, n in enumerate(lens):
+        each.prepare_append(slot, n)
+        each.cache, lg = tr.paged_chunk_extend(
+            tparams, each.cache, torch.tensor(each.block_tables()[slot]),
+            torch.tensor(tokens[slot]), lengths[slot], n, tcfg, tdt)
+        el.append(lg)
+    assert batch.metrics["pages_cow"] == 2
+    assert batch.metrics == each.metrics
+    assert batch.page_tables == each.page_tables
+    # a row alone attends up to the page of its own last position (5, 4
+    # and 3 pages), the batch up to the batch's (5): the softmax and the
+    # weighted sum add the masked tail's zeros in another order, so the
+    # rows agree to a few float32 steps, or one bfloat16 step
+    tol = 1e-6 if dt == "f32" else 2 ** -8
+    for k in ("k", "v"):
+        torch.testing.assert_close(batch.cache[k], each.cache[k], rtol=tol,
+                                   atol=tol)
+    torch.testing.assert_close(tl, torch.stack(el), rtol=tol, atol=tol)
 
 
 def test_init_params_shapes_and_scales():

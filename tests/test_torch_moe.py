@@ -410,9 +410,15 @@ def test_paged_decode_step(model, dt):
 
 
 @pytest.mark.parametrize("dt", sorted(DTYPES))
-def test_paged_chunk_extend(model, dt):
+def test_paged_chunk_extend(model, dt, monkeypatch):
     """A chunk padded to 8 with 5 real tokens: C comes from the padded
-    length on both sides."""
+    length on both sides.  The same chunk with two more rows in one
+    ``paged_chunk_extend_batch``: the capacity dispatch is a row's own,
+    so each row's slice of the batch's routing is the experts of its
+    one-row call, and the pool's bytes equal the one-row calls'; the
+    logits differ at most by the head's GEMM over 3 rows, which the CPU's
+    BLAS sums in another order than over one (a few float32 steps, or one
+    bfloat16 step, of a logit)."""
     jdt, tdt = DTYPES[dt]
     jcfg, jparams, tcfg, tparams = model
     pool, tables = _pool(jcfg, 8)
@@ -431,6 +437,44 @@ def test_paged_chunk_extend(model, dt):
         pairs.append((tc[k][:, None], np.asarray(jc[k], np.float32)[:, None],
                       1))
     _agree(pairs, logs, dt, "paged_chunk_extend")
+
+    rows = [(0, 3, 5), (1, 6, 2), (2, 9, 8)]       # (table row, start, n)
+    chunks = np.zeros((3, 8), np.int32)
+    chunks[0] = tokens
+    chunks[1, :2], chunks[2] = _tokens(2, 9), _tokens(8, 10)
+    routes, route = [], tr.moe_route
+
+    def logged(*a, **kw):
+        out = route(*a, **kw)
+        routes.append(out[2])
+        return out
+
+    monkeypatch.setattr(tr, "moe_route", logged)
+    batch = {k: torch.tensor(v).to(tdt) for k, v in pool.items()}
+    each = {k: v.clone() for k, v in batch.items()}
+    batch, bl = tr.paged_chunk_extend_batch(
+        tparams, batch, torch.tensor(tables[:3]), torch.tensor(chunks),
+        [start for _, start, _ in rows], [n for _, _, n in rows], tcfg, tdt)
+    # one (3, 8, k) a layer; then a row's (1, 8, k) a layer, row by row
+    by_layer = routes[:]
+    routes.clear()
+    el = []
+    for (r, start, n), chunk in zip(rows, chunks):
+        each, lg = tr.paged_chunk_extend(
+            tparams, each, torch.tensor(tables[r]), torch.tensor(chunk),
+            start, n, tcfg, tdt)
+        el.append(lg)
+    L = tcfg.n_layers
+    assert len(by_layer) == L and len(routes) == 3 * L
+    for layer in range(L):
+        for b in range(3):
+            assert torch.equal(by_layer[layer][b:b + 1],
+                               routes[b * L + layer]), (layer, b)
+    for k in ("k", "v"):
+        assert torch.equal(batch[k], each[k]), k
+    head_tol = 1e-6 if dt == "f32" else 2 ** -8
+    torch.testing.assert_close(bl, torch.stack(el), rtol=head_tol,
+                               atol=head_tol)
 
 
 def test_greedy_generate(model):
@@ -491,7 +535,7 @@ def _engine_log():
              ("moe_ffn", "forward", "paged_chunk_extend",
               "paged_decode_step")}
     t_fns = {n: getattr(tr, n) for n in
-             ("moe_route", "forward", "paged_chunk_extend",
+             ("moe_route", "forward", "paged_chunk_extend_batch",
               "paged_decode_step")}
 
     def jlogits(lg):
@@ -533,8 +577,9 @@ def _engine_log():
         return out
 
     def t_extend(*a, **kw):
-        cache, lg = t_fns["paged_chunk_extend"](*a, **kw)
-        tlog.append(("logits", bridge.tensor_to_numpy(lg)))
+        # the engine extends through the batched entry: a row an event
+        cache, lg = t_fns["paged_chunk_extend_batch"](*a, **kw)
+        tlog.extend(("logits", bridge.tensor_to_numpy(row)) for row in lg)
         return cache, lg
 
     def t_decode(*a, **kw):
@@ -546,7 +591,7 @@ def _engine_log():
                (jtr, "paged_chunk_extend", j_extend),
                (jtr, "paged_decode_step", j_decode),
                (tr, "moe_route", t_route), (tr, "forward", t_forward),
-               (tr, "paged_chunk_extend", t_extend),
+               (tr, "paged_chunk_extend_batch", t_extend),
                (tr, "paged_decode_step", t_decode)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
     for mod, name, fn in patches:

@@ -10,7 +10,9 @@
   retrieval) and a 1+1 cluster serve a closed batch traced on both sides:
   the spans, in commit order and per request, are the JAX package's less
   their times (kind, request, engine track, tick, attempt, attrs), once
-  the port's sub-stage spans and the attrs it adds are left out; both
+  the port's sub-stage spans and the attrs it adds are left out and the
+  JAX engine's ``STAGE:append`` spans of one retrieval batch are made
+  one, as the port appends a batch in one forward (its ``rows``); both
   traces are well formed, the span-derived TTFT and TPOT bracket the
   request fields, and tracing changes neither the tokens nor
   ``host_syncs``, ``h2d_copies`` and the stages timed.  The cluster's
@@ -83,7 +85,8 @@ SUB_STAGES = {
 }
 #: attrs the port's engine adds to a span kind
 PORT_ATTRS = {"DECODE_TICK": ("h2d", "graph"),
-              "EMBED": ("rows", "pad_rows")}
+              "EMBED": ("rows", "pad_rows"),
+              "STAGE:append": ("rows", "tokens", "calls")}
 
 
 # ---------------------------------------------------------------------------
@@ -427,6 +430,22 @@ def _shape(tracer, reqs) -> list:
             if not _is_sub_stage(s.kind)]
 
 
+def _batch_appends(shape) -> tuple[list, list]:
+    """``shape`` with each run of consecutive ``STAGE:append`` spans of
+    one tick made one, and the runs' lengths: the JAX engine appends a
+    retrieval batch's documents a request a span, the port's in one."""
+    out, runs = [], []
+    for entry in shape:
+        if entry[0] == "STAGE:append":
+            if out and out[-1][0] == "STAGE:append" and \
+                    out[-1][3] == entry[3]:
+                runs[-1] += 1
+                continue
+            runs.append(1)
+        out.append(entry)
+    return out, runs
+
+
 def _sequences(tracer, reqs) -> list:
     """Each request's spans in time order, without their times."""
     return [[(s.kind, s.engine, s.tick, s.attempt, _shared_attrs(s))
@@ -507,7 +526,10 @@ def test_engine_spans_match_jax(stack, preset, tmp_path):
              for q in questions]
     tserver.run_until_idle()
     _compare_streams(stack, jreqs, treqs)
-    assert _shape(tt, treqs) == _shape(jt, jreqs)
+    jshape, runs = _batch_appends(_shape(jt, jreqs))
+    assert _shape(tt, treqs) == jshape
+    assert [s.attrs["rows"] for s in tt.spans()
+            if s.kind == "STAGE:append"] == runs
     assert _sequences(tt, treqs) == _sequences(jt, jreqs)
     kinds = {s.kind for s in tt.spans()}
     assert {"SUBMIT", "ADMIT", "STAGE:retrieval", "EMBED", "RETRIEVE",
@@ -666,7 +688,10 @@ def test_cluster_spans_match_jax(stack, tmp_path):
     treqs = [tserver.submit(q.copy()).request for q in questions]
     tserver.run_until_idle()
     _compare_streams(stack, jreqs, treqs)
-    assert _shape(tt, treqs) == _shape(jt, jreqs)
+    jshape, runs = _batch_appends(_shape(jt, jreqs))
+    assert _shape(tt, treqs) == jshape
+    assert [s.attrs["rows"] for s in tt.spans()
+            if s.kind == "STAGE:append"] == runs
     assert _sequences(tt, treqs) == _sequences(jt, jreqs)
     kinds = {s.kind for s in tt.spans()}
     assert {"ADMIT", "HANDOFF", "DECODE", "PREFILL"} <= kinds
