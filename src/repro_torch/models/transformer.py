@@ -27,19 +27,29 @@ JAX returns a new cache from the decode and extend entry points; the port
 writes into the cache IN PLACE and returns the same dict, so a step costs
 no copy of the cache.
 
+One layer body, ``_layer``, serves every entry point: ``ln1``, the
+projections and RoPE, attention, ``wo`` and its residual, ``ln2``, the
+FFN and its residual.  An entry point is where the new K/V go and what
+they attend over: its ``attend(q, k, v)``.  ``forward`` attends within
+the sequence (``_attn_full_seq``); the cache entry points run the layers
+through ``_layers``, their ``attend`` writing the layer's K/V into the
+cache and attending over it.
+
 Attention ops: ``forward``, ``prefill``, ``encode`` and
 ``greedy_generate`` take the full-sequence op ``attn_impl(q, k, v,
 causal)`` (the flash kernel's contract, unrepeated KV heads); the decode
 steps take their decode op.  ``None`` keeps the reference paths, which
 mirror JAX's einsums step for step.  ``chunk_extend`` and the paged
 chunk extends attend a chunk to a cache at an offset, which is not the
-flash kernel's function: they keep their plain attention.
+flash kernel's function: they share one plain attention,
+``_chunk_attention``.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from functools import partial
 from typing import Any
 
 import numpy as np
@@ -402,23 +412,19 @@ def _qkv(x, lp, cfg, positions, compute_dtype):
     return q, k, v
 
 
-def _attn_full_seq(x, lp, cfg, positions, compute_dtype, attn_impl=None):
-    """Self-attention over a full sequence.  Returns (out, k, v).
+def _attn_full_seq(q, k, v, cfg, attn_impl=None):
+    """Self-attention over a full sequence: ``forward``'s ``attend``.
 
     ``attn_impl(q, k, v, causal) -> (B, S, H, D)`` gets the unrepeated KV
     heads; ``None`` runs the reference paths below."""
-    B, S, _ = x.shape
-    q, k, v = _qkv(x, lp, cfg, positions, compute_dtype)
+    B, S = q.shape[:2]
     window = cfg.window if cfg.attention == "sliding_window" else None
     if attn_impl is not None:
         if window is not None:
             raise NotImplementedError(
                 "the flash attention kernel has no sliding window; use "
                 "attn_impl='ref' for a sliding_window config")
-        out = attn_impl(q, k, v, cfg.causal)
-        wo = cm.maybe_dequant(lp["wo"], compute_dtype)
-        out = out.reshape(B, S, cfg.n_heads * cfg.d_head) @ wo
-        return out.to(x.dtype), k, v
+        return attn_impl(q, k, v, cfg.causal)
     # the backward of repeat_kv views the repeated heads' gradient as
     # (H_kv, q_per_kv): "kv_proj" reshards it first, as it does forward
     kr = hints.constrain(cm.repeat_kv(k, cfg.q_per_kv), "kv_proj")
@@ -432,16 +438,65 @@ def _attn_full_seq(x, lp, cfg, positions, compute_dtype, attn_impl=None):
         out = cm.chunked_causal_attention(q, kr, vr, cfg.attn_block_kv, window)
     else:
         out = cm.naive_causal_attention(q, kr, vr, window)
+    # the backward of this reshape views the gradient as heads; the hint
+    # stays here, as the decode cells' "q_proj" would reshard their output
+    return hints.constrain(out.reshape(B, S, cfg.n_heads * cfg.d_head),
+                           "q_proj")
+
+
+def _chunk_attention(q, k, v, mask, cfg, compute_dtype):
+    """A chunk's attention over caches at an offset: q (B, T, H, D) over
+    k/v (B, S, H_kv, D) in the cache's dtype, cast to the compute dtype as
+    JAX attends; ``mask`` (B or 1, 1, T, S) is True where a query sees a
+    position."""
+    scale = 1.0 / math.sqrt(cfg.d_head)
+    kr = cm.repeat_kv(k.to(compute_dtype), cfg.q_per_kv)
+    vr = cm.repeat_kv(v.to(compute_dtype), cfg.q_per_kv)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, kr).float() * scale
+    scores = torch.where(mask, scores, -math.inf)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, vr)
+
+
+def _layer(x, lp, cfg, positions, compute_dtype, attend):
+    """One decoder layer: (x, the MoE aux loss or None, k, v).
+
+    ``attend(q, k, v)`` is all an entry point adds: it writes the new K/V
+    (B, S, H_kv, D) where its cache keeps them and attends over what that
+    cache holds, returning (B, S, H, D) or (B, S, H * D)."""
+    q, k, v = _qkv(cm.rms_norm(x, lp["ln1"], cfg.norm_eps), lp, cfg,
+                   positions, compute_dtype)
+    out = attend(q, k, v).flatten(2)
     wo = cm.maybe_dequant(lp["wo"], compute_dtype)
-    # and the backward of this reshape views the gradient as heads
-    out = hints.constrain(out.reshape(B, S, cfg.n_heads * cfg.d_head),
-                          "q_proj") @ wo
-    return out.to(x.dtype), k, v
+    x = x + (out @ wo).to(x.dtype)
+    h, aux = _ffn(cm.rms_norm(x, lp["ln2"], cfg.norm_eps), lp, cfg,
+                  compute_dtype)
+    return x + h, aux, k, v
+
+
+def _layers(x, params, cfg, positions, compute_dtype, attend):
+    """x through every layer of a cache entry point, layer i attending
+    with ``attend(i, q, k, v)``."""
+    layers = params["layers"]
+    for i in range(cfg.n_layers):
+        x = _layer(x, layer_params(layers, i), cfg, positions, compute_dtype,
+                   partial(attend, i))[0]
+    return x
+
+
+def _embed(params, tokens, compute_dtype):
+    return cm.maybe_dequant(params["embed"], compute_dtype)[tokens]
 
 
 def _head(params, x, compute_dtype):
     head = cm.maybe_dequant(params["head"], compute_dtype)
     return x.to(compute_dtype) @ head
+
+
+def _logits(params, x, cfg, compute_dtype):
+    """``ln_f``, then the head."""
+    return _head(params, cm.rms_norm(x, params["ln_f"], cfg.norm_eps),
+                 compute_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -465,20 +520,15 @@ def forward(params: TransformerParams, tokens: torch.Tensor,
     a DTensor.  ``params`` may be a plain nested dict (the train
     state's)."""
     B, S = tokens.shape
-    embed = cm.maybe_dequant(params["embed"], compute_dtype)
-    x = embed[tokens]
+    x = _embed(params, tokens, compute_dtype)
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     ks, vs = [], []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    attend = partial(_attn_full_seq, cfg=cfg, attn_impl=attn_impl)
 
     def layer_fn(x, aux, lp):
-        x = hints.constrain_to(x, sp_spec)
-        h, k, v = _attn_full_seq(cm.rms_norm(x, lp["ln1"], cfg.norm_eps),
-                                 lp, cfg, positions, compute_dtype, attn_impl)
-        x = x + h
-        h, a = _ffn(cm.rms_norm(x, lp["ln2"], cfg.norm_eps), lp, cfg,
-                    compute_dtype)
-        x = x + h
+        x, a, k, v = _layer(hints.constrain_to(x, sp_spec), lp, cfg,
+                            positions, compute_dtype, attend)
         return x, (aux if a is None else aux + a), k, v
 
     for lp in unstack_layers(params["layers"], cfg.n_layers):
@@ -491,10 +541,9 @@ def forward(params: TransformerParams, tokens: torch.Tensor,
         if collect_cache:
             ks.append(k)
             vs.append(v)
-    x = cm.rms_norm(x, params["ln_f"], cfg.norm_eps)
     if return_hidden:
-        return x
-    logits = _head(params, x, compute_dtype)
+        return cm.rms_norm(x, params["ln_f"], cfg.norm_eps)
+    logits = _logits(params, x, cfg, compute_dtype)
     aux = aux / cfg.n_layers
     if collect_cache:
         return logits, aux, {"k": torch.stack(ks), "v": torch.stack(vs)}
@@ -614,8 +663,7 @@ def decode_step(params: TransformerParams, cache: dict, token: torch.Tensor,
     B = token.shape[0]
     s_max = cache["k"].shape[2]
     h_kv, d = cfg.n_kv_heads, cfg.d_head
-    embed = cm.maybe_dequant(params["embed"], compute_dtype)
-    x = embed[token][:, None, :]                                  # (B, 1, d)
+    x = _embed(params, token, compute_dtype)[:, None, :]          # (B, 1, d)
     pos_l = pos.long()
     keep = pos_l < s_max
     if write_mask is not None:
@@ -630,25 +678,17 @@ def decode_step(params: TransformerParams, cache: dict, token: torch.Tensor,
                                            cm.repeat_kv(vc, cfg.q_per_kv),
                                            cache_len)
     cache_len = (pos + 1).to(torch.int32)
-    layers = params["layers"]
-    for i in range(cfg.n_layers):
-        lp = layer_params(layers, i)
+
+    def attend(i, q, k, v):
         kc, vc = cache["k"][i], cache["v"][i]          # (B, S_max, H_kv, D)
-        xn = cm.rms_norm(x, lp["ln1"], cfg.norm_eps)
-        q, k_new, v_new = _qkv(xn, lp, cfg, pos[:, None], compute_dtype)
-        for c, new in ((kc, k_new), (vc, v_new)):
+        for c, new in ((kc, k), (vc, v)):
             c.scatter_(1, at, torch.where(keep, new.to(c.dtype),
                                           c.gather(1, at)))
         # JAX attends over the cache cast to the compute dtype
-        out = attn(q, kc.to(compute_dtype), vc.to(compute_dtype), cache_len)
-        wo = cm.maybe_dequant(lp["wo"], compute_dtype)
-        x = x + (out.reshape(B, 1, cfg.n_heads * d) @ wo).to(x.dtype)
-        h, _ = _ffn(cm.rms_norm(x, lp["ln2"], cfg.norm_eps), lp, cfg,
-                    compute_dtype)
-        x = x + h
-    x = cm.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    logits = _head(params, x, compute_dtype)[:, 0]               # (B, V)
-    return logits, cache
+        return attn(q, kc.to(compute_dtype), vc.to(compute_dtype), cache_len)
+
+    x = _layers(x, params, cfg, pos[:, None], compute_dtype, attend)
+    return _logits(params, x, cfg, compute_dtype)[:, 0], cache   # (B, V)
 
 
 def greedy_generate(params: TransformerParams, tokens: torch.Tensor,
@@ -706,34 +746,22 @@ def chunk_extend(params: TransformerParams, cache: dict, slot: int,
     T = tokens.shape[0]
     slot, start_pos, n_valid = int(slot), int(start_pos), int(n_valid)
     dev = tokens.device
-    embed = cm.maybe_dequant(params["embed"], compute_dtype)
-    x = embed[tokens][None]                                       # (1, T, d)
+    x = _embed(params, tokens, compute_dtype)[None]               # (1, T, d)
     offs = torch.arange(T, device=dev)
     positions = (start_pos + offs)[None]                          # (1, T)
     # rows that JAX would not drop: real tokens at positions below S_max
     n_rows = max(0, min(n_valid, s_max - start_pos, T))
-    scale = 1.0 / math.sqrt(cfg.d_head)
     mask = (torch.arange(s_max, device=dev)[None, None, None, :]
             <= positions[0][None, None, :, None])
-    layers = params["layers"]
-    for i in range(cfg.n_layers):
-        lp = layer_params(layers, i)
+
+    def attend(i, q, k, v):
         kc, vc = cache["k"][i], cache["v"][i]          # (B, S_max, H_kv, D)
-        xn = cm.rms_norm(x, lp["ln1"], cfg.norm_eps)
-        q, k_new, v_new = _qkv(xn, lp, cfg, positions, compute_dtype)
-        kc[slot, start_pos:start_pos + n_rows] = k_new[0, :n_rows].to(kc.dtype)
-        vc[slot, start_pos:start_pos + n_rows] = v_new[0, :n_rows].to(vc.dtype)
-        kr = cm.repeat_kv(kc[slot][None].to(compute_dtype), cfg.q_per_kv)
-        vr = cm.repeat_kv(vc[slot][None].to(compute_dtype), cfg.q_per_kv)
-        scores = torch.einsum("bqhd,bkhd->bhqk", q, kr).float() * scale
-        scores = torch.where(mask, scores, -math.inf)
-        probs = torch.softmax(scores, dim=-1).to(q.dtype)
-        out = torch.einsum("bhqk,bkhd->bqhd", probs, vr)
-        wo = cm.maybe_dequant(lp["wo"], compute_dtype)
-        x = x + (out.reshape(1, T, cfg.n_heads * cfg.d_head) @ wo).to(x.dtype)
-        h, _ = _ffn(cm.rms_norm(x, lp["ln2"], cfg.norm_eps), lp, cfg,
-                    compute_dtype)
-        x = x + h
+        kc[slot, start_pos:start_pos + n_rows] = k[0, :n_rows].to(kc.dtype)
+        vc[slot, start_pos:start_pos + n_rows] = v[0, :n_rows].to(vc.dtype)
+        return _chunk_attention(q, kc[slot][None], vc[slot][None], mask, cfg,
+                                compute_dtype)
+
+    _layers(x, params, cfg, positions, compute_dtype, attend)
     return cache
 
 
@@ -785,8 +813,7 @@ def paged_decode_step(params: TransformerParams, cache: dict,
     B = token.shape[0]
     _, P, page = cache["k"].shape[:3]
     M = block_tables.shape[1]
-    embed = cm.maybe_dequant(params["embed"], compute_dtype)
-    x = embed[token][:, None, :]                                  # (B, 1, d)
+    x = _embed(params, token, compute_dtype)[:, None, :]          # (B, 1, d)
     pos_l = pos.long()
     page_log = pos_l // page
     phys = torch.gather(block_tables.long(), 1,
@@ -806,27 +833,19 @@ def paged_decode_step(params: TransformerParams, cache: dict,
             return engine_ref_attn(q, kp, vp, tables, cache_len,
                                    cfg.q_per_kv)
     cache_len = (pos + 1).to(torch.int32)
-    layers = params["layers"]
-    for i in range(cfg.n_layers):
-        lp = layer_params(layers, i)
+
+    def attend(i, q, k, v):
         kc, vc = cache["k"][i], cache["v"][i]          # (P, page, H_kv, D)
-        xn = cm.rms_norm(x, lp["ln1"], cfg.norm_eps)
-        q, k_new, v_new = _qkv(xn, lp, cfg, pos[:, None], compute_dtype)
-        for c, new in ((kc, k_new), (vc, v_new)):
+        for c, new in ((kc, k), (vc, v)):
             f = c.view(P * page, cfg.n_kv_heads, cfg.d_head)
             f.index_copy_(0, flat, torch.where(keep, new[src, 0].to(f.dtype),
                                                f[flat]))
         # JAX attends over the pool cast to the compute dtype
-        out = attn(q, kc.to(compute_dtype), vc.to(compute_dtype),
-                   block_tables, cache_len)
-        wo = cm.maybe_dequant(lp["wo"], compute_dtype)
-        x = x + (out.reshape(B, 1, cfg.n_heads * cfg.d_head) @ wo).to(x.dtype)
-        h, _ = _ffn(cm.rms_norm(x, lp["ln2"], cfg.norm_eps), lp, cfg,
-                    compute_dtype)
-        x = x + h
-    x = cm.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    logits = _head(params, x, compute_dtype)[:, 0]               # (B, V)
-    return logits, cache
+        return attn(q, kc.to(compute_dtype), vc.to(compute_dtype),
+                    block_tables, cache_len)
+
+    x = _layers(x, params, cfg, pos[:, None], compute_dtype, attend)
+    return _logits(params, x, cfg, compute_dtype)[:, 0], cache   # (B, V)
 
 
 def paged_chunk_extend(params: TransformerParams, cache: dict,
@@ -887,8 +906,7 @@ def paged_chunk_extend_batch(params: TransformerParams, cache: dict,
     starts = [int(s) for s in start_pos]
     valid = [int(n) for n in n_valid]
     dev = tokens.device
-    embed = cm.maybe_dequant(params["embed"], compute_dtype)
-    x = embed[tokens]                                             # (B, T, d)
+    x = _embed(params, tokens, compute_dtype)                     # (B, T, d)
     offs = torch.arange(T, device=dev)
     positions = torch.stack([s + offs for s in starts])           # (B, T)
     # rows that JAX would not drop: real tokens whose position is in the
@@ -908,33 +926,20 @@ def paged_chunk_extend_batch(params: TransformerParams, cache: dict,
         mask = (torch.arange(live * page, device=dev)[None, None, None, :]
                 <= positions[a:b, None, :, None])           # (b-a,1,T,span)
         groups.append((a, b, block_rows[a:b, :live], mask))
-    scale = 1.0 / math.sqrt(cfg.d_head)
-    layers = params["layers"]
-    for i in range(cfg.n_layers):
-        lp = layer_params(layers, i)
+
+    def attend(i, q, k, v):
         kc, vc = cache["k"][i], cache["v"][i]
-        xn = cm.rms_norm(x, lp["ln1"], cfg.norm_eps)
-        q, k_new, v_new = _qkv(xn, lp, cfg, positions, compute_dtype)
-        for c, new in ((kc, k_new), (vc, v_new)):
+        for c, new in ((kc, k), (vc, v)):
             f = c.view(P * page, h_kv, d)
             f.index_copy_(0, flat, new.reshape(B * T, h_kv, d)
                           .index_select(0, sel).to(f.dtype))
-        outs = []
-        for a, b, tables, mask in groups:
-            kg = kc[tables].reshape(b - a, -1, h_kv, d)
-            vg = vc[tables].reshape(b - a, -1, h_kv, d)
-            kr = cm.repeat_kv(kg.to(compute_dtype), cfg.q_per_kv)
-            vr = cm.repeat_kv(vg.to(compute_dtype), cfg.q_per_kv)
-            scores = torch.einsum("bqhd,bkhd->bhqk", q[a:b],
-                                  kr).float() * scale
-            scores = torch.where(mask, scores, -math.inf)
-            probs = torch.softmax(scores, dim=-1).to(q.dtype)
-            outs.append(torch.einsum("bhqk,bkhd->bqhd", probs, vr))
-        out = torch.cat(outs) if len(outs) > 1 else outs[0]
-        wo = cm.maybe_dequant(lp["wo"], compute_dtype)
-        x = x + (out.reshape(B, T, cfg.n_heads * d) @ wo).to(x.dtype)
-        x = x + _ffn(cm.rms_norm(x, lp["ln2"], cfg.norm_eps), lp, cfg,
-                     compute_dtype)[0]
+        outs = [_chunk_attention(
+            q[a:b], kc[tables].reshape(b - a, -1, h_kv, d),
+            vc[tables].reshape(b - a, -1, h_kv, d), mask, cfg, compute_dtype)
+            for a, b, tables, mask in groups]
+        return torch.cat(outs) if len(outs) > 1 else outs[0]
+
+    x = _layers(x, params, cfg, positions, compute_dtype, attend)
     xf = cm.rms_norm(x, params["ln_f"], cfg.norm_eps)
     last = torch.stack([xf[b, max(n - 1, 0)] for b, n in enumerate(valid)])
     return cache, _head(params, last, compute_dtype)             # (B, V)

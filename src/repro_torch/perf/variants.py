@@ -28,7 +28,6 @@ from repro_torch.launch.steps import (_METRICS_SPEC, CellProgram,
                                       _replicated, _sds, _serving_params_abs,
                                       _state_spec, _train_step,
                                       build_lm_cell, gnn_batch_abstract)
-from repro_torch.models import common as cm
 from repro_torch.models import transformer as tr
 from repro_torch.training.optim import AdamWConfig, init_opt_state
 from repro_torch.training.pytree import leaves
@@ -69,8 +68,7 @@ def decode_step_variant(params, cache: dict, token: torch.Tensor,
     cache is updated in place.  Returns (logits (B, V), cache)."""
     B = token.shape[0]
     s_max = cache["k"].shape[2]
-    embed = cm.maybe_dequant(params["embed"], compute_dtype)
-    x = embed[token][:, None, :]
+    x = tr._embed(params, token, compute_dtype)[:, None, :]
     b_idx = torch.arange(B, device=token.device)
     pos_l = pos.long()
     at = torch.clamp(pos_l, max=s_max - 1)
@@ -82,33 +80,25 @@ def decode_step_variant(params, cache: dict, token: torch.Tensor,
             (B,) + (1,) * (new.dim() - 1)), new.to(c.dtype), c[b_idx, at])
 
     cache_len = (pos + 1).to(torch.int32)
-    for i in range(cfg.n_layers):
-        lp = tr.layer_params(params["layers"], i)
+
+    def attend(i, q, k, v):
         kc, vc = cache["k"][i], cache["v"][i]
-        xn = cm.rms_norm(x, lp["ln1"], cfg.norm_eps)
-        q, k_new, v_new = tr._qkv(xn, lp, cfg, pos[:, None], compute_dtype)
-        if int8_kv:
-            ks, vs = cache["k_scale"][i], cache["v_scale"][i]
-            kq, ks_new = _quantize_token(k_new[:, 0])
-            vq, vs_new = _quantize_token(v_new[:, 0])
-            put(kc, kq)
-            put(vc, vq)
-            put(ks, ks_new)
-            put(vs, vs_new)
-            out = attn_impl(q, kc, vc, ks, vs, cache_len)
-        else:
-            put(kc, k_new[:, 0])
-            put(vc, v_new[:, 0])
-            out = attn_impl(q, kc.to(compute_dtype), vc.to(compute_dtype),
-                            cache_len)
-        wo = cm.maybe_dequant(lp["wo"], compute_dtype)
-        x = x + (out.reshape(B, 1, cfg.n_heads * cfg.d_head)
-                 @ wo).to(x.dtype)
-        xn = cm.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        h, _ = tr._ffn(xn, lp, cfg, compute_dtype)
-        x = x + h
-    x = cm.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return tr._head(params, x, compute_dtype)[:, 0], cache
+        if not int8_kv:
+            put(kc, k[:, 0])
+            put(vc, v[:, 0])
+            return attn_impl(q, kc.to(compute_dtype), vc.to(compute_dtype),
+                             cache_len)
+        ks, vs = cache["k_scale"][i], cache["v_scale"][i]
+        kq, ks_new = _quantize_token(k[:, 0])
+        vq, vs_new = _quantize_token(v[:, 0])
+        put(kc, kq)
+        put(vc, vq)
+        put(ks, ks_new)
+        put(vs, vs_new)
+        return attn_impl(q, kc, vc, ks, vs, cache_len)
+
+    x = tr._layers(x, params, cfg, pos[:, None], compute_dtype, attend)
+    return tr._logits(params, x, cfg, compute_dtype)[:, 0], cache
 
 
 def build_lm_decode_variant(arch: ArchSpec, shape: ShapeSpec, mesh,

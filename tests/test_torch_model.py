@@ -9,6 +9,9 @@ the same places in both, but a product can land on the other side of a
 rounding boundary; one bf16 step is 2^-8 relative, and two layers of
 residual stream carry a few of them, so bf16 outputs are held to
 ``BF16_TOL`` absolute on values of order one.
+
+The last test holds the port against itself, not JAX: every cache entry
+point against ``forward``, through the layer body they share.
 """
 
 import dataclasses
@@ -422,3 +425,113 @@ def test_init_params_shapes_and_scales():
                          torch.Generator().manual_seed(0), device="cpu")
     assert moe["layers"]["router"].shape == (2, 48, 4)
     assert moe["layers"]["w_up"].shape == (2, 4, 48, 64)
+
+
+# ---------------------------------------------------------------------------
+# The layer body's seam: every cache entry point against forward
+# ---------------------------------------------------------------------------
+
+#: (config fields, int8 weights) of the seam test's models; the MoE's
+#: capacity factor E / top_k gives every expert room for every token, so
+#: no entry point drops one whatever its chunk
+SEAM_MODELS = {"swiglu": ({}, False), "relu2": ({"ffn_type": "relu2"}, False),
+               "rope_half": ({"rotary_frac": 0.5}, False),
+               "int8": ({}, True),
+               "moe": ({"moe": tr.MoEConfig(4, 2, capacity_factor=2.0)},
+                       False)}
+#: two rows of 8 tokens; the paged pool's pages of 4, the rows' tables out
+#: of order, page 2 unused
+SEAM_S, SEAM_PAGE = 8, 4
+SEAM_TABLES = torch.tensor([[3, 0], [4, 1]], dtype=torch.int32)
+
+
+def _seam_pool(cfg):
+    return tr.make_paged_cache(cfg, 5, SEAM_PAGE, torch.float32, device="cpu")
+
+
+def _seam_view(pool):
+    """The pool's K/V as (L, B, S, H_kv, D), through the tables."""
+    return {k: v[:, SEAM_TABLES].flatten(2, 3) for k, v in pool.items()}
+
+
+def _seam_decode_step(params, cfg, tokens):
+    cache = tr.make_cache(cfg, 2, SEAM_S, torch.float32, device="cpu")
+    outs = []
+    for t in range(SEAM_S):
+        pos = torch.full((2,), t, dtype=torch.int32)
+        lg, cache = tr.decode_step(params, cache, tokens[:, t], pos, cfg,
+                                   torch.float32)
+        outs.append((pos, lg))
+    return outs, cache
+
+
+def _seam_chunk_extend(params, cfg, tokens):
+    """Row b in two chunks, split at 3 and 5, each padded to 5 tokens."""
+    cache = tr.make_cache(cfg, 2, SEAM_S, torch.float32, device="cpu")
+    for b, split in enumerate((3, 5)):
+        for start, end in ((0, split), (split, SEAM_S)):
+            chunk = torch.zeros(5, dtype=tokens.dtype)
+            chunk[:end - start] = tokens[b, start:end]
+            cache = tr.chunk_extend(params, cache, b, chunk, start,
+                                    end - start, cfg, torch.float32)
+    return [], cache
+
+
+def _seam_paged_decode_step(params, cfg, tokens):
+    pool, outs = _seam_pool(cfg), []
+    for t in range(SEAM_S):
+        pos = torch.full((2,), t, dtype=torch.int32)
+        lg, pool = tr.paged_decode_step(params, pool, tokens[:, t], pos,
+                                        SEAM_TABLES, cfg, torch.float32)
+        outs.append((pos, lg))
+    return outs, _seam_view(pool)
+
+
+def _seam_paged_chunk_extend_batch(params, cfg, tokens):
+    """Both rows in two calls, row 0 split at 3 and row 1 at 5: each
+    call's chunks start at another offset and page."""
+    pool, outs = _seam_pool(cfg), []
+    for starts, valid in (((0, 0), (3, 5)), ((3, 5), (5, 3))):
+        chunks = torch.zeros(2, 5, dtype=tokens.dtype)
+        for b, (s, n) in enumerate(zip(starts, valid)):
+            chunks[b, :n] = tokens[b, s:s + n]
+        pool, lg = tr.paged_chunk_extend_batch(
+            params, pool, SEAM_TABLES, chunks, list(starts), list(valid),
+            cfg, torch.float32)
+        outs.append((torch.tensor(starts) + torch.tensor(valid) - 1, lg))
+    return outs, _seam_view(pool)
+
+
+SEAM_ENTRIES = {"decode_step": _seam_decode_step,
+                "chunk_extend": _seam_chunk_extend,
+                "paged_decode_step": _seam_paged_decode_step,
+                "paged_chunk_extend_batch": _seam_paged_chunk_extend_batch}
+
+
+@pytest.mark.parametrize("entry", sorted(SEAM_ENTRIES))
+@pytest.mark.parametrize("variant", sorted(SEAM_MODELS))
+def test_cache_entry_points_agree_with_forward(variant, entry):
+    """Each cache entry point runs the layer body ``forward`` runs, with its
+    own K/V writes and attention: fed the same tokens, it gives forward's
+    logits at each position it returns and writes forward's collected K/V,
+    at f32 to ``F32_TOL`` (the entry points sum attention over another
+    extent and in another order)."""
+    kw, int8 = SEAM_MODELS[variant]
+    cfg = tr.TransformerConfig(name="seam", n_layers=2, d_model=48, n_heads=4,
+                               n_kv_heads=2, d_head=16, d_ff=64,
+                               vocab_size=96, **kw)
+    params = tr.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    if int8:
+        params = tr.quantize_for_serving(params)
+    tokens = torch.tensor(np.random.default_rng(10).integers(
+        0, 96, (2, SEAM_S)), dtype=torch.int32)
+    want, _, want_kv = tr.forward(params, tokens, cfg, torch.float32,
+                                  collect_cache=True)
+    outs, kv = SEAM_ENTRIES[entry](params, cfg, tokens)
+    for pos, lg in outs:
+        torch.testing.assert_close(lg, want[torch.arange(2), pos.long()],
+                                   rtol=F32_TOL, atol=F32_TOL)
+    for k in ("k", "v"):
+        torch.testing.assert_close(kv[k], want_kv[k], rtol=F32_TOL,
+                                   atol=F32_TOL)
