@@ -35,7 +35,10 @@ lines (and its seconds as a ``phase_seconds`` line), in order:
                at greedy generation's B=1 shape, each with its split;
                flash also at those models' prefills and a few edges
                (ragged S, kv_len < S, D=128); the PQ scan at one serve
-               search, through both entry points
+               search, through both entry points; the paged chunk-extend
+               attention at the iterative benchmark cell's append batch
+               and at serve_plan's append, beside the plain path as the
+               extend runs it
   decode_sync  the decode steps with no host read: one paged_decode_step
                through the paged kernel and one dense decode_step through
                the dense kernel, Granite-3.0-2B at serve's shape (8 slots,
@@ -67,6 +70,7 @@ lines (and its seconds as a ``phase_seconds`` line), in order:
                this card (a fresh engine: corpus encode, index, paged
                pool of 128 slots), 8 questions replayed from a JSONL
                trace, 256 tokens each; launch counts over this phase
+               (the chunk-extend kernel once a layer an append forward)
   serve_disagg the same plan deployed with ``topology="disagg"``: 2
                prefill engines + 1 decode engine (``plan.group_sizes()``)
                on this card, the same trace; TTFT/TPOT per group, the
@@ -484,6 +488,108 @@ def check_paged_attention() -> dict:
     out.update({key: out["serve"][key] for key in
                 ("ms", "plain_ms", "bound_ms", "bound_by")},
                max_abs_err=max(out[n]["max_abs_err"] for n in PAGED_SHAPES))
+    return out
+
+
+#: the paged chunk extend's attention, (B, T, H_kv, G, D, page, M,
+#: starts): the iterative benchmark cell's append batch (ChatGLM3-6B's 32
+#: query heads over 2 KV heads of 128; 8 rows of 512 tokens appended at
+#: 528-1,792 into tables of 256 pages of 16) and serve_plan's append
+#: (Granite-3.0-2B's 32 over 8 heads of 64; one row, the 8-token bucket
+#: of a 2-token append at 574 in a table of 48 pages: s_max 768); then the
+#: cell's batch under the heads of Granite-3.0-2B, Minitron-8B (48 over
+#: 8 of 128) and Moonlight-16B-A3B in the reference's config (16 over 16
+#: of 128, G=1)
+CHUNK_STARTS = [528, 576, 1104, 1152, 1680, 1728, 1764, 1792]
+CHUNK_SHAPES = {"iterative_cell": (8, 512, 2, 16, 128, 16, 256, CHUNK_STARTS),
+                "serve_plan": (1, 8, 8, 4, 64, 16, 48, [574]),
+                "granite_heads": (8, 512, 8, 4, 64, 16, 256, CHUNK_STARTS),
+                "minitron_heads": (8, 512, 8, 6, 128, 16, 256, CHUNK_STARTS),
+                "moonlight_heads": (8, 512, 16, 1, 128, 16, 256,
+                                    CHUNK_STARTS)}
+#: kernel against plain version: one bf16 step of an output of order one
+#: at most, and a share of the plain version's norm (the bounds of
+#: tests/test_torch_chunk_attention.py)
+CHUNK_TOL, CHUNK_REL_TOL = 2e-2, 2e-2
+
+
+def chunk_bound(shape, tables) -> tuple[float, str]:
+    """The least time of one bf16 call: 4*D operations a visible (query,
+    key) pair and query head; q and the output once, each distinct K/V
+    row a query sees once, the used table entries and the starts."""
+    b, t, h_kv, g, d, page, m, starts = shape
+    s = m * page
+    rows = set()
+    pairs = 0
+    for bi, st in enumerate(starts):
+        end = min(st + t, s)
+        rows.update((int(tables[bi, p // page]), p % page)
+                    for p in range(end))
+        pairs += sum(min(st + i, s - 1) + 1 for i in range(t))
+    used_pages = sum(-(-min(st + t, s) // page) for st in starts)
+    n_bytes = (2 * b * t * h_kv * g * d * 2 + 2 * len(rows) * h_kv * d * 2
+               + 4 * used_pages + 4 * b)
+    return bound(n_bytes, 4 * d * h_kv * g * pairs, "bfloat16")
+
+
+def check_paged_chunk_attention() -> dict:
+    """Kernel vs plain version at CHUNK_SHAPES in bf16 (the kernel's one
+    dtype), on random pools of B*M + 1 pages with each row's table a
+    random draw of them: the largest, mean and relative errors within
+    CHUNK_TOL / CHUNK_REL_TOL; each shape timed warm and cold in L2,
+    beside the plain path as the extend runs it (the tables cut to the
+    page of the last position) and the bound."""
+    import torch
+    from repro_torch.kernels.paged_chunk_attention import ops as pca
+    from repro_torch.kernels.paged_chunk_attention.ref import (
+        paged_chunk_attention_ref, tables_upto)
+
+    out = {"tol_reason": "the kernel keeps f32 scores where the plain "
+                         "version rounds them to bf16 before its f32 "
+                         "softmax; outputs averaged over hundreds to "
+                         "thousands of keys, so the error is bounded "
+                         "against the plain version's norm as well"}
+    for name, shape in CHUNK_SHAPES.items():
+        b, t, h_kv, g, d, page, m, starts = shape
+        gen = torch.Generator().manual_seed(0)
+        n_pages = b * m + 1
+        k, v = (torch.randn(n_pages, page, h_kv, d, generator=gen)
+                .to(torch.bfloat16).to(DEVICE) for _ in range(2))
+        tables = torch.randperm(n_pages - 1, generator=gen)[:b * m].reshape(
+            b, m).to(torch.int32).to(DEVICE)
+        q = torch.randn(b, t, h_kv * g, d, generator=gen).to(
+            torch.bfloat16).to(DEVICE)
+        first = torch.tensor(starts, dtype=torch.int32, device=DEVICE)
+        cut = tables_upto(tables, max(starts) + t, page)
+
+        def kernel():
+            return pca.paged_chunk_attention_cuda(q, k, v, tables, first)
+
+        def plain():
+            return paged_chunk_attention_ref(q, k, v, cut, first)
+
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        res = {"shape": [b, t, h_kv, g, d, page, m], "starts": starts,
+               "max_abs_err": float(diff.max()),
+               "mean_abs_err": float(diff.mean()),
+               "rel_err": float(diff.norm() / want.float().norm())}
+        if not (torch.isfinite(got).all() and res["max_abs_err"] <= CHUNK_TOL
+                and res["rel_err"] <= CHUNK_REL_TOL):
+            raise AssertionError(f"paged chunk attention {name}: {res}")
+        res["ms"] = device_ms(kernel)
+        res["cold_ms"] = device_ms_cold(kernel)
+        res["plain_ms"] = device_ms(plain, 5)
+        res["bound_ms"], res["bound_by"] = chunk_bound(
+            shape, tables.cpu().numpy())
+        out[name] = res
+        del k, v, q, got, want, diff
+        torch.cuda.empty_cache()
+    # the kernels line reports the iterative cell's batch
+    out.update({key: out["iterative_cell"][key] for key in
+                ("ms", "plain_ms", "bound_ms", "bound_by")},
+               max_abs_err=max(out[n]["max_abs_err"] for n in CHUNK_SHAPES))
     return out
 
 
@@ -1107,10 +1213,13 @@ def phase_kernels(engine) -> dict:
     partial = check_decode_partial()
     emit({"phase": "kernels", "kernel": "decode_attention_partial",
           **partial})
+    chunk = check_paged_chunk_attention()
+    emit({"phase": "kernels", "kernel": "paged_chunk_attention", **chunk})
     torch.cuda.synchronize()
     return {"paged_decode_attention": pa, "pq_scan": pq,
             "decode_attention": dense, "flash_attention": flash,
-            "decode_attention_partial": partial}
+            "decode_attention_partial": partial,
+            "paged_chunk_attention": chunk}
 
 
 #: the decode_sync phase, at serve's pool (8 slots of s_max 1,024 in pages
@@ -1668,6 +1777,8 @@ def phase_serve_plan(engine, questions) -> dict:
         "stage_time_s": snap["stage_time_s"], "decode_steps": steps,
         "searches": searches, "retrieval_batches": snap["retrieval_batches"],
         "iterative_retrievals": iterative, "prefills": snap["prefills"],
+        "append_calls": snap["append_calls"],
+        "append_kernel_calls": snap["append_kernel_calls"],
         "kv_pages": plan_engine.pool.n_pages,
         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
         "attn_impl": snap["attn_impl"], "launches": launches,
@@ -1688,6 +1799,15 @@ def phase_serve_plan(engine, questions) -> dict:
     if launches["pq_scan"] != searches:
         raise AssertionError(f"pq_scan launched {launches['pq_scan']} "
                              f"times for {searches} searches")
+    # every iterative append forward attends through the chunk kernel
+    appends = snap["append_calls"]
+    if (appends < 1 or snap["append_kernel_calls"] != appends
+            or launches["paged_chunk_attention"] != n_layers * appends):
+        raise AssertionError(f"paged chunk attention launched "
+                             f"{launches['paged_chunk_attention']} times "
+                             f"over {snap['append_kernel_calls']} of "
+                             f"{appends} append forwards, expected "
+                             f"{n_layers} x {appends}")
     # the corpus encode of the fresh engine, then the prefills and embeds
     n_docs = len(plan_engine.corpus)
     corpus_batches = -(-n_docs // 32)
@@ -4358,16 +4478,23 @@ def main() -> int:
         "decode_attention_partial": (
             "src/repro_torch/csrc/decode_attention.cu",
             "src/repro/kernels/decode_attention/decode_attention.py:70"),
+        # the reference attends a chunk through plain einsums, no kernel
+        "paged_chunk_attention": (
+            "src/repro_torch/csrc/paged_chunk_attention.cu",
+            "src/repro/models/transformer.py:640"),
     }
     # each kernel's launches on the path it serves: the paged serve phase
     # for paged attention and the PQ scan, serve_dense for dense attention,
-    # serve_plan for flash attention, the distributed phase's splitk
-    # engine for the dense kernel's partial entry
+    # serve_plan for flash attention and the chunk extend's attention, the
+    # distributed phase's splitk engine for the dense kernel's partial
+    # entry
     launches = {**served["launches"],
                 "decode_attention":
                 served_dense["launches"]["decode_attention"],
                 "flash_attention":
                 served_plan["launches"]["flash_attention"],
+                "paged_chunk_attention":
+                served_plan["launches"]["paged_chunk_attention"],
                 "decode_attention_partial":
                 distributed["serve"]["partial_launches"]}
     kernels = []

@@ -98,6 +98,22 @@ def naive_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+def chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    mask: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """A chunk's attention over caches at an offset: q (B, T, H, D) over
+    k/v (B, S, H_kv, D) in the cache's dtype, cast to the compute dtype as
+    JAX attends; ``mask`` (B or 1, 1, T, S) is True where a query sees a
+    position."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    n_rep = q.shape[2] // k.shape[2]
+    kr = repeat_kv(k.to(compute_dtype), n_rep)
+    vr = repeat_kv(v.to(compute_dtype), n_rep)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, kr).float() * scale
+    scores = torch.where(mask, scores, -math.inf)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, vr)
+
+
 def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, block_kv: int = 1024,
                              window: int | None = None) -> torch.Tensor:

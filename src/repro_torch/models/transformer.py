@@ -39,10 +39,12 @@ Attention ops: ``forward``, ``prefill``, ``encode`` and
 ``greedy_generate`` take the full-sequence op ``attn_impl(q, k, v,
 causal)`` (the flash kernel's contract, unrepeated KV heads); the decode
 steps take their decode op.  ``None`` keeps the reference paths, which
-mirror JAX's einsums step for step.  ``chunk_extend`` and the paged
-chunk extends attend a chunk to a cache at an offset, which is not the
-flash kernel's function: they share one plain attention,
-``_chunk_attention``.
+mirror JAX's einsums step for step.  The paged chunk extends take the
+block-table-native chunk op ``attn_impl(q, k_pages, v_pages, block_rows,
+starts)`` (the paged chunk-extend kernel's contract); without it they
+run that kernel's plain version, which like the dense ``chunk_extend``
+attends a chunk to its cache at an offset through the one plain chunk
+attention, ``common.chunk_attention``.
 """
 
 from __future__ import annotations
@@ -61,6 +63,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device
 from repro_torch.distributed import hints
 from repro_torch.kernels.paged_attention.ref import engine_ref_attn
+from repro_torch.kernels.paged_chunk_attention.ref import (
+    paged_chunk_attention_ref, tables_upto)
 from repro_torch.models import common as cm
 
 
@@ -444,20 +448,6 @@ def _attn_full_seq(q, k, v, cfg, attn_impl=None):
                            "q_proj")
 
 
-def _chunk_attention(q, k, v, mask, cfg, compute_dtype):
-    """A chunk's attention over caches at an offset: q (B, T, H, D) over
-    k/v (B, S, H_kv, D) in the cache's dtype, cast to the compute dtype as
-    JAX attends; ``mask`` (B or 1, 1, T, S) is True where a query sees a
-    position."""
-    scale = 1.0 / math.sqrt(cfg.d_head)
-    kr = cm.repeat_kv(k.to(compute_dtype), cfg.q_per_kv)
-    vr = cm.repeat_kv(v.to(compute_dtype), cfg.q_per_kv)
-    scores = torch.einsum("bqhd,bkhd->bhqk", q, kr).float() * scale
-    scores = torch.where(mask, scores, -math.inf)
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, vr)
-
-
 def _layer(x, lp, cfg, positions, compute_dtype, attend):
     """One decoder layer: (x, the MoE aux loss or None, k, v).
 
@@ -758,8 +748,8 @@ def chunk_extend(params: TransformerParams, cache: dict, slot: int,
         kc, vc = cache["k"][i], cache["v"][i]          # (B, S_max, H_kv, D)
         kc[slot, start_pos:start_pos + n_rows] = k[0, :n_rows].to(kc.dtype)
         vc[slot, start_pos:start_pos + n_rows] = v[0, :n_rows].to(vc.dtype)
-        return _chunk_attention(q, kc[slot][None], vc[slot][None], mask, cfg,
-                                compute_dtype)
+        return cm.chunk_attention(q, kc[slot][None], vc[slot][None], mask,
+                                  compute_dtype)
 
     _layers(x, params, cfg, positions, compute_dtype, attend)
     return cache
@@ -851,9 +841,10 @@ def paged_decode_step(params: TransformerParams, cache: dict,
 def paged_chunk_extend(params: TransformerParams, cache: dict,
                        block_row: torch.Tensor, tokens: torch.Tensor,
                        start_pos: int, n_valid: int, cfg: TransformerConfig,
-                       compute_dtype=torch.bfloat16):
+                       compute_dtype=torch.bfloat16, attn_impl=None):
     """Extend ONE sequence's paged cache with a chunk of tokens: the
-    one-row call of :func:`paged_chunk_extend_batch`.
+    one-row call of :func:`paged_chunk_extend_batch` (``attn_impl`` is
+    its chunk op).
 
     block_row: (M,) int32, the sequence's page table row.  tokens: (T,)
     padded; only the first ``n_valid`` are real.  Returns (cache, logits
@@ -861,21 +852,22 @@ def paged_chunk_extend(params: TransformerParams, cache: dict,
     """
     cache, logits = paged_chunk_extend_batch(
         params, cache, block_row[None], tokens[None], [start_pos],
-        [n_valid], cfg, compute_dtype)
+        [n_valid], cfg, compute_dtype, attn_impl=attn_impl)
     return cache, logits[0]
 
 
 #: f32 attention scores one group of a paged chunk extend's rows may hold
-#: (2 GiB: 8 rows of 512 tokens over 4,096 positions at 32 heads); larger
-#: batches attend a group of rows at a time, so the scores, their masked
-#: copy and the softmax stay a few GiB whatever the batch
+#: on the plain path (2 GiB: 8 rows of 512 tokens over 4,096 positions at
+#: 32 heads); larger batches attend a group of rows at a time, so the
+#: scores, their masked copy and the softmax stay a few GiB whatever the
+#: batch.  A chunk op (``attn_impl``) makes no scores and no groups.
 _ATTN_SCORES_BYTES = 1 << 31
 
 
 def paged_chunk_extend_batch(params: TransformerParams, cache: dict,
                              block_rows: torch.Tensor, tokens: torch.Tensor,
                              start_pos, n_valid, cfg: TransformerConfig,
-                             compute_dtype=torch.bfloat16):
+                             compute_dtype=torch.bfloat16, attn_impl=None):
     """Extend B sequences' paged caches with a chunk each, in one forward.
 
     block_rows: (B, M) int32, each sequence's page table row.  tokens:
@@ -890,11 +882,15 @@ def paged_chunk_extend_batch(params: TransformerParams, cache: dict,
     capacity, as B one-row calls do), and the writes are one
     ``index_copy_`` per K and V a layer over the rows' kept tokens; the
     positions and write targets are built on the device, with no copy
-    from the host.  The attention runs over groups of rows whose f32
-    scores fit ``_ATTN_SCORES_BYTES``, each group reading its rows' tables
-    only up to the page of its last position.  The rows' write ranges
-    must lie in pages no other row reads (the paged pool's
-    ``prepare_append`` makes them so).
+    from the host.  ``attn_impl(q, k_pages, v_pages, block_rows, starts)``
+    is block-table-native: it gets the layer's post-write pool
+    (P, page, H_kv, D) in the compute dtype, the block rows and each row's
+    start position (B,) int32, made on the device.  Without it the
+    kernel's plain version runs over groups of rows whose f32 scores fit
+    ``_ATTN_SCORES_BYTES``, each group gathering its rows' tables only up
+    to the page of its last position.  The rows' write ranges must lie in
+    pages no other row reads (the paged pool's ``prepare_append`` makes
+    them so).
     Returns (cache, logits of each row's last valid token (B, V)); the
     pool is updated in place.
     """
@@ -915,17 +911,11 @@ def paged_chunk_extend_batch(params: TransformerParams, cache: dict,
     sel = torch.cat([b * T + offs[:n] for b, n in enumerate(kept)])
     wpos = positions.reshape(-1)[sel]
     flat = block_rows.long()[sel // T, wpos // page] * page + wpos % page
-    # no token attends past its own position, so a group of rows reads
-    # its tables only up to the page of the group's last position: the
-    # masked tail beyond it carries no weight
+    first = positions[:, 0].to(torch.int32)                       # (B,)
+    # the plain path: groups of rows, each reading its tables only up to
+    # the page of the group's last position
     step = max(1, _ATTN_SCORES_BYTES // (cfg.n_heads * T * S * 4))
-    groups = []
-    for a in range(0, B, step):
-        b = min(a + step, B)
-        live = min(M, -(-(max(starts[a:b]) + T) // page))
-        mask = (torch.arange(live * page, device=dev)[None, None, None, :]
-                <= positions[a:b, None, :, None])           # (b-a,1,T,span)
-        groups.append((a, b, block_rows[a:b, :live], mask))
+    groups = [(a, min(a + step, B)) for a in range(0, B, step)]
 
     def attend(i, q, k, v):
         kc, vc = cache["k"][i], cache["v"][i]
@@ -933,10 +923,13 @@ def paged_chunk_extend_batch(params: TransformerParams, cache: dict,
             f = c.view(P * page, h_kv, d)
             f.index_copy_(0, flat, new.reshape(B * T, h_kv, d)
                           .index_select(0, sel).to(f.dtype))
-        outs = [_chunk_attention(
-            q[a:b], kc[tables].reshape(b - a, -1, h_kv, d),
-            vc[tables].reshape(b - a, -1, h_kv, d), mask, cfg, compute_dtype)
-            for a, b, tables, mask in groups]
+        if attn_impl is not None:
+            return attn_impl(q, kc.to(compute_dtype), vc.to(compute_dtype),
+                             block_rows, first)
+        outs = [paged_chunk_attention_ref(
+            q[a:b], kc, vc,
+            tables_upto(block_rows[a:b], max(starts[a:b]) + T, page),
+            first[a:b]) for a, b in groups]
         return torch.cat(outs) if len(outs) > 1 else outs[0]
 
     x = _layers(x, params, cfg, positions, compute_dtype, attend)

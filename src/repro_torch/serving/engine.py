@@ -51,12 +51,16 @@ Hot path, as in the JAX engine:
   whole-cache copy JAX makes there counted in ``cache_copy_bytes``.
 * Iteratively retrieved context and chunked prompt prefill share one
   bucketed chunk-extend forward (``tr.paged_chunk_extend_batch``; dense:
-  ``tr.chunk_extend``), with plain attention: a chunk attending to a
-  cache at an offset is not the flash kernel's function.  On the paged
-  pool a retrieval batch's appends are one forward over all of its rows
-  (one per prompt bucket; ``append_calls``, ``append_rows``), each row
-  through its own block row; a chunked prefill extends one slot a chunk,
-  and the dense pool one slot a forward.
+  ``tr.chunk_extend``).  On the paged pool a retrieval batch's appends
+  are one forward over all of its rows (one per prompt bucket;
+  ``append_calls``, ``append_rows``), each row through its own block
+  row; a chunked prefill extends one slot a chunk, and the dense pool
+  one slot a forward.  A chunk attends to its cache at an offset: with
+  ``"cuda"`` on the paged pool through the paged chunk-extend kernel,
+  each row read through its block row in place (``append_kernel_calls``
+  counts the appends' forwards it served on a CUDA device); ``"ref"``,
+  ``"splitk"`` and the dense pool keep the plain attention that mirrors
+  JAX's einsums.
 
 PyTorch runs eagerly, so where the JAX engine jit-compiles one program
 per prompt bucket, the port just runs the forward; ``prefill_compiles``
@@ -224,7 +228,7 @@ class RAGEngine:
              "retrieval_batches": 0, "retrieved_queries": 0,
              "prefills": 0,
              "prefill_compiles": 0, "append_compiles": 0,
-             "append_calls": 0, "append_rows": 0,
+             "append_calls": 0, "append_rows": 0, "append_kernel_calls": 0,
              "host_syncs": 0, "decode_host_syncs": 0,
              "h2d_copies": self.h2d,
              "cache_copy_bytes": 0, "capacity_stops": 0,
@@ -242,7 +246,7 @@ class RAGEngine:
         # resolved attention implementation ("auto" picks by device)
         self.attn_impl = cfg.attn_impl if cfg.attn_impl != "auto" else (
             "cuda" if self.device.type == "cuda" else "ref")
-        self.paged_attn, self.dense_attn, self.seq_attn = \
+        self.paged_attn, self.dense_attn, self.seq_attn, self.chunk_attn = \
             self._make_attn_impls()
         # the fused step through the decode kernels on a GPU is replayed
         # from a CUDA graph (``decode_logits``), on either pool
@@ -328,23 +332,26 @@ class RAGEngine:
     # ---------------- shared primitives -----------------------------------
 
     def _make_attn_impls(self):
-        """The (paged decode, dense decode, full-sequence) attention
-        callables for the resolved ``attn_impl``; ``(None, None, None)``
-        keeps the model functions' built-in references."""
+        """The (paged decode, dense decode, full-sequence, paged chunk)
+        attention callables for the resolved ``attn_impl``; ``None`` keeps
+        the model functions' built-in references."""
         if self.attn_impl == "ref":
-            return None, None, None
+            return None, None, None, None
         if self.attn_impl == "splitk":
             return self._splitk_attn_impls()
         from repro_torch.kernels.decode_attention.ops import decode_attention
         from repro_torch.kernels.flash_attention.ops import flash_attention
         from repro_torch.kernels.paged_attention.ops import (
             paged_decode_attention)
-        return paged_decode_attention, decode_attention, flash_attention
+        from repro_torch.kernels.paged_chunk_attention.ops import (
+            paged_chunk_attention)
+        return (paged_decode_attention, decode_attention, flash_attention,
+                paged_chunk_attention)
 
     def _splitk_attn_impls(self):
         """Split-K decode attention over the 1 x 1 host mesh's ``model``
-        axis (one shard: no collective); full-sequence attention stays
-        plain."""
+        axis (one shard: no collective); full-sequence and chunk
+        attention stay plain."""
         from repro_torch.distributed.decode_attn import (
             make_distributed_decode_attn)
         from repro_torch.launch.mesh import make_host_mesh
@@ -360,7 +367,7 @@ class RAGEngine:
             vg = vp[tables].reshape(b, m * page, h_kv, d)
             return dense_attn(q, kg, vg, cache_len)
 
-        return paged_attn, dense_attn, None
+        return paged_attn, dense_attn, None, None
 
     def has_executor(self, name: str) -> bool:
         return any(ex.name == name for ex in self.executors)
@@ -636,10 +643,11 @@ class RAGEngine:
         """Extend the caches of distinct slots, ``rows`` of (slot, tokens):
         allocate/COW the pages each write range touches, then one
         ``tr.paged_chunk_extend_batch`` per power-of-two bucket writes the
-        bucket's rows, with two copies to the device (its block rows and
-        its padded tokens).  Returns each call's (rows, V) logits of its
-        rows' last valid tokens (left on the device; only chunked
-        prefill's final chunk reads them)."""
+        bucket's rows through the engine's chunk attention, with two
+        copies to the device (its block rows and its padded tokens).
+        Returns each call's (rows, V) logits of its rows' last valid
+        tokens (left on the device; only chunked prefill's final chunk
+        reads them)."""
         tracer = self.tracer
         if tracer.enabled:
             self._lap()
@@ -664,7 +672,7 @@ class RAGEngine:
         for block_rows, chunk, starts, n_valid in calls:
             self.pool.cache, logits = tr.paged_chunk_extend_batch(
                 self.gen.params, self.pool.cache, block_rows, chunk, starts,
-                n_valid, self.gen.cfg)
+                n_valid, self.gen.cfg, attn_impl=self.chunk_attn)
             out.append(logits)
         for slot, tokens in rows:
             self.pool.lengths[slot] += len(tokens)
@@ -723,13 +731,19 @@ class RAGEngine:
         """Append a retrieval batch's documents, ``rows`` of (slot,
         tokens), into their slots' caches (iteration prefill) under one
         ``append`` stage: on the paged pool one chunk-extend forward a
-        bucket over all of the rows, on the dense pool one a row."""
+        bucket over all of the rows, on the dense pool one a row.  The
+        stage's ``kernel`` attr is 1 when their attention ran the paged
+        chunk-extend kernel (``append_kernel_calls``)."""
+        paged = isinstance(self.pool, PagedKVCachePool)
+        kernel = int(paged and self.chunk_attn is not None
+                     and self.device.type == "cuda")
         attrs = None
         if self.tracer.enabled:
             attrs = {"rows": len(rows),
-                     "tokens": sum(len(tokens) for _, tokens in rows)}
+                     "tokens": sum(len(tokens) for _, tokens in rows),
+                     "kernel": kernel}
         with self._timed("append", attrs=attrs):
-            if isinstance(self.pool, PagedKVCachePool):
+            if paged:
                 calls = len(self._paged_extend(rows))
             else:
                 for slot, tokens in rows:
@@ -739,6 +753,7 @@ class RAGEngine:
                 attrs["calls"] = calls
         self.metrics["append_calls"] += calls
         self.metrics["append_rows"] += len(rows)
+        self.metrics["append_kernel_calls"] += kernel * calls
 
     def _decode_step(self) -> None:
         token_vec = np.zeros(self.pool.n_slots, np.int32)

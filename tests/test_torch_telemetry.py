@@ -86,7 +86,7 @@ SUB_STAGES = {
 #: attrs the port's engine adds to a span kind
 PORT_ATTRS = {"DECODE_TICK": ("h2d", "graph"),
               "EMBED": ("rows", "pad_rows"),
-              "STAGE:append": ("rows", "tokens", "calls")}
+              "STAGE:append": ("rows", "tokens", "calls", "kernel")}
 
 
 # ---------------------------------------------------------------------------
