@@ -5,7 +5,12 @@ weight stacked on axis 0, as ``repro.models.transformer.init_params``
 lays them out; the entry points are plain functions over tensors with the
 JAX package's names and signatures.  A Python loop over layers takes the
 place of ``jax.lax.scan``.  The FFN is dense or a mixture of experts
-(``moe_ffn``: JAX's capacity dispatch, step for step).
+(``moe_ffn``: JAX's capacity dispatch, step for step).  A
+``LatentMoEConfig`` (DeepSeek-V3: Moonlight-16B-A3B), which the JAX
+package does not have, takes latent attention (``models/mla.py``) and,
+past its leading dense layers, the sigmoid-routed experts with shared
+experts (``routed_moe_ffn``: no token dropped), its FFN weights in layer
+groups of their own (``layer_weights``).
 
 Serving subset: ``forward`` (full sequence, optional KV collection),
 ``prefill``, ``encode``, the dense-cache entry points ``make_cache``,
@@ -66,6 +71,7 @@ from repro_torch.kernels.paged_attention.ref import engine_ref_attn
 from repro_torch.kernels.paged_chunk_attention.ref import (
     paged_chunk_attention_ref, tables_upto)
 from repro_torch.models import common as cm
+from repro_torch.models import mla as latent
 
 
 # ---------------------------------------------------------------------------
@@ -77,6 +83,44 @@ class MoEConfig:
     n_experts: int
     top_k: int
     capacity_factor: float = 1.25
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head latent attention's widths (``models/mla.py``)."""
+    kv_lora_rank: int
+    qk_nope_head_dim: int
+    qk_rope_head_dim: int
+    v_head_dim: int
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    @property
+    def latent_dim(self) -> int:
+        """Width of one latent row: the compressed KV and the rope key."""
+        return self.kv_lora_rank + self.qk_rope_head_dim
+
+    @property
+    def scale(self) -> float:
+        return 1.0 / math.sqrt(self.qk_head_dim)
+
+
+@dataclass(frozen=True)
+class RoutedMoEConfig:
+    """DeepSeek-V3's sparse FFN (``routed_moe_ffn``): sigmoid scores, the
+    top ``top_k`` of scores plus a correction bias chosen, gate weights
+    the chosen scores normalised to sum 1, times ``routed_scale``;
+    ``n_shared`` shared experts always on (one SwiGLU of ``n_shared *
+    d_expert``); no token dropped.  The first ``first_dense`` layers have
+    a dense SwiGLU FFN of ``d_ff`` instead."""
+    n_experts: int
+    top_k: int
+    d_expert: int
+    n_shared: int
+    first_dense: int
+    routed_scale: float
 
 
 @dataclass(frozen=True)
@@ -100,6 +144,10 @@ class TransformerConfig:
     chunked_attn_threshold: int = 2048  # use online-softmax path above this S
     norm_eps: float = 1e-6
     pad_vocab_to: int = 512           # Megatron-style vocab padding for TP
+    # set by ``LatentMoEConfig`` only; class attributes, not fields, so the
+    # fields stay the JAX dataclass's
+    mla = None
+    routed = None
 
     @property
     def q_per_kv(self) -> int:
@@ -134,6 +182,39 @@ class TransformerConfig:
         ffn = d * self.moe.n_experts + self.moe.top_k * n_ffn_mats * d * f
         per_layer = attn + ffn + 2 * d
         return self.n_layers * per_layer + 2 * self.vocab_size * d + d
+
+
+@dataclass(frozen=True)
+class LatentMoEConfig(TransformerConfig):
+    """A DeepSeek-V3 decoder (Moonlight-16B-A3B): latent attention
+    (``mla``; ``n_kv_heads`` is ``n_heads`` and ``d_head`` the query-key
+    head, ``mla.qk_head_dim``) and, after ``routed.first_dense`` dense
+    layers, the routed experts (``routed``).  The JAX package has no such
+    model, so this subclass carries what its dataclass lacks.
+
+    Weights: ``layers`` stacks every layer's ``ln1``,
+    ``ln2``, ``wq`` (d, H * qk), ``wkv_a`` (d, latent_dim), ``ln_kv``
+    (kv_lora_rank), ``wkv_b`` (kv_lora_rank, H * (qk_nope + v)), ``wo``
+    (H * v, d); ``dense_layers`` the first layers' ``w_gate``, ``w_up``,
+    ``w_down``; ``moe_layers`` the rest's ``router`` (d, E),
+    ``router_bias`` (E,) float32, experts ``w_gate``, ``w_up`` (E, d,
+    d_expert), ``w_down`` (E, d_expert, d) and shared ``s_gate``,
+    ``s_up`` (d, n_shared * d_expert), ``s_down``."""
+    mla: MLAConfig | None = None
+    routed: RoutedMoEConfig | None = None
+
+    def param_count(self) -> int:
+        d, h, v, L = self.d_model, self.n_heads, self.vocab_size, self.n_layers
+        m, r = self.mla, self.routed
+        attn = (d * h * m.qk_head_dim + d * m.latent_dim + m.kv_lora_rank
+                + m.kv_lora_rank * h * (m.qk_nope_head_dim + m.v_head_dim)
+                + h * m.v_head_dim * d + 2 * d)
+        dense = 3 * d * self.d_ff
+        moe = (d * r.n_experts + r.n_experts
+               + r.n_experts * 3 * d * r.d_expert
+               + 3 * d * r.n_shared * r.d_expert)
+        return (L * attn + r.first_dense * dense
+                + (L - r.first_dense) * moe + 2 * v * d + d)
 
 
 # ---------------------------------------------------------------------------
@@ -190,6 +271,18 @@ def layer_params(layers: dict, i: int) -> dict:
                 else v[i]) for k, v in layers.items()}
 
 
+def layer_weights(params, cfg: TransformerConfig, i: int) -> dict:
+    """Layer ``i``'s weights: the stacked ``layers`` and, for a routed-MoE
+    config, its FFN's group (``dense_layers`` or ``moe_layers``)."""
+    lp = layer_params(params["layers"], i)
+    r = cfg.routed
+    if r is not None:
+        group, j = (("dense_layers", i) if i < r.first_dense
+                    else ("moe_layers", i - r.first_dense))
+        lp.update(layer_params(params[group], j))
+    return lp
+
+
 def unstack_layers(layers: dict, n_layers: int) -> list[dict]:
     """Every layer's weights (``layer_params`` of each i) as views made by
     one ``torch.unbind`` a stacked leaf.  Under autograd a stack's
@@ -200,6 +293,21 @@ def unstack_layers(layers: dict, n_layers: int) -> list[dict]:
                 if isinstance(v, dict) else torch.unbind(v))
             for k, v in layers.items()}
     return [layer_params(cols, i) for i in range(n_layers)]
+
+
+def _unstacked(params, cfg: TransformerConfig) -> list[dict]:
+    """``unstack_layers`` of every layer, a routed-MoE config's FFN groups
+    merged into their layers (``layer_weights`` of each i)."""
+    lps = unstack_layers(params["layers"], cfg.n_layers)
+    r = cfg.routed
+    if r is not None:
+        nd = r.first_dense
+        for group, lo, n in (("dense_layers", 0, nd),
+                             ("moe_layers", nd, cfg.n_layers - nd)):
+            for lp, own in zip(lps[lo:lo + n],
+                               unstack_layers(params[group], n)):
+                lp.update(own)
+    return lps
 
 
 def init_params(cfg: TransformerConfig, generator: torch.Generator,
@@ -279,14 +387,20 @@ def _quantize_int8_sliced(w: torch.Tensor, max_elems: int = 1 << 27) -> dict:
 def quantize_for_serving(params: TransformerParams) -> TransformerParams:
     """Per-channel int8 quantization of all matmul weights (paper §4):
     every weight but the norms becomes ``{"q": int8, "scale": float32}``
-    along its last axis, as in JAX."""
+    along its last axis, as in JAX.  A routed-MoE config's layer groups
+    (``dense_layers``, ``moe_layers``) go the same way, the router's
+    correction bias kept as it is."""
     tree = params.tree()
-    layers = {name: (w if name.startswith("ln") else _quantize_int8_sliced(w))
-              for name, w in tree["layers"].items()}
-    return TransformerParams({"ln_f": tree["ln_f"],
-                              "embed": _quantize_int8_sliced(tree["embed"]),
-                              "head": _quantize_int8_sliced(tree["head"]),
-                              "layers": layers})
+    out = {"ln_f": tree["ln_f"],
+           "embed": _quantize_int8_sliced(tree["embed"]),
+           "head": _quantize_int8_sliced(tree["head"])}
+    for group, leaves in tree.items():
+        if isinstance(leaves, dict):
+            out[group] = {name: (w if name.startswith("ln")
+                                 or name == "router_bias"
+                                 else _quantize_int8_sliced(w))
+                          for name, w in leaves.items()}
+    return TransformerParams(out)
 
 
 # ---------------------------------------------------------------------------
@@ -389,8 +503,92 @@ def dense_ffn(x: torch.Tensor, lp: dict, compute_dtype=torch.bfloat16,
     return (h @ wd).to(x.dtype)
 
 
-def _ffn(xn, lp, cfg, compute_dtype):
-    """(FFN output, the MoE aux loss or None for a dense FFN)."""
+def route_sigmoid(x: torch.Tensor, lp: dict, cfg: TransformerConfig):
+    """DeepSeek-V3's ``noaux_tc`` router with one group, in float32 as the
+    published gate computes it: x (T, d) -> (experts (T, k), gate weights
+    (T, k) float32).  Scores are sigmoid(x W_router); the top k of scores
+    plus ``router_bias`` are chosen; the weights are the chosen scores
+    without the bias, normalised to sum 1, times ``routed_scale``."""
+    r = cfg.routed
+    scores = torch.sigmoid(x.float()
+                           @ cm.maybe_dequant(lp["router"], torch.float32))
+    eidx = torch.topk(scores + lp["router_bias"].float(), r.top_k,
+                      dim=-1).indices
+    gates = torch.gather(scores, -1, eidx)
+    gates = gates / (gates.sum(dim=-1, keepdim=True) + 1e-20)
+    return eidx, gates * r.routed_scale
+
+
+@dataclass
+class RouteStats:
+    """What a decode step's routed layers record on the device, with no
+    host read: ``live`` (B,) the rows that step; ``stats`` (2,) float32,
+    summed over the layers: distinct experts the live rows chose and the
+    most live rows one expert took."""
+    live: torch.Tensor
+    stats: torch.Tensor
+
+
+def routed_moe_ffn(x: torch.Tensor, lp: dict, cfg: TransformerConfig,
+                   compute_dtype=torch.bfloat16,
+                   route: RouteStats | None = None,
+                   gate_x: torch.Tensor | None = None) -> torch.Tensor:
+    """x: (B, S, d) -> (B, S, d): the routed experts' weighted sum plus
+    the shared experts, dropping no token at any batch.  The router reads
+    ``gate_x`` (default x), the same rows before any rounding to x's
+    dtype.
+
+    The dispatch sorts the T x k (token, choice) pairs by expert (a stable
+    sort on the device), gathers their rows, and runs each expert's rows
+    as one group of ``torch._grouped_mm`` whose group ends are the
+    experts' counts summed on the device; the outputs go back to their
+    pairs by one ``index_copy_`` and are weighted and summed in float32.
+    Nothing is read on the host, so a CUDA graph can replay it; every
+    pair is computed once, with no padding to a capacity (the extra work
+    is the sort, the gather of T x k rows and the copy back)."""
+    B, S, d = x.shape
+    r = cfg.routed
+    xf = x.reshape(B * S, d)
+    eidx, gates = route_sigmoid(
+        xf if gate_x is None else gate_x.reshape(B * S, d), lp, cfg)  # (T, k)
+    T, k = eidx.shape
+    flat = eidx.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    counts = torch.zeros(r.n_experts, dtype=torch.int32,
+                         device=x.device).scatter_add_(
+        0, flat, torch.ones_like(flat, dtype=torch.int32))
+    ends = torch.cumsum(counts, 0, dtype=torch.int32)
+    xs = xf.to(compute_dtype)[order // k]                        # (T*k, d)
+    wg = cm.maybe_dequant(lp["w_gate"], compute_dtype)
+    wu = cm.maybe_dequant(lp["w_up"], compute_dtype)
+    wd = cm.maybe_dequant(lp["w_down"], compute_dtype)
+    h = cm.swiglu(torch._grouped_mm(xs, wg, offs=ends),
+                  torch._grouped_mm(xs, wu, offs=ends))
+    ys = torch._grouped_mm(h, wd, offs=ends)
+    y = torch.empty_like(ys).index_copy_(0, order, ys)          # pair order
+    y = (y.reshape(T, k, d).float() * gates[..., None]).sum(dim=1)
+    shared = dense_ffn(xf, {"w_gate": lp["s_gate"], "w_up": lp["s_up"],
+                            "w_down": lp["s_down"]}, compute_dtype)
+    if route is not None:
+        live = route.live.to(torch.float32)[:, None].expand(
+            B, S * k).reshape(-1)
+        took = torch.zeros(r.n_experts, dtype=torch.float32,
+                           device=x.device).scatter_add_(0, flat, live)
+        route.stats.add_(torch.stack([(took > 0).sum().float(),
+                                      took.max()]))
+    return (y.to(compute_dtype) + shared.to(compute_dtype)).to(
+        x.dtype).reshape(B, S, d)
+
+
+def _ffn(x, lp, cfg, compute_dtype, route=None):
+    """``ln2``, then the FFN: (its output, the MoE aux loss or None for a
+    dense FFN).  A routed layer's router reads the normed rows in float32,
+    before their rounding to x's dtype."""
+    xn = cm.rms_norm(x, lp["ln2"], cfg.norm_eps)
+    if cfg.routed is not None and "router" in lp:
+        gate_x = cm.rms_norm(x.float(), lp["ln2"], cfg.norm_eps)
+        return routed_moe_ffn(xn, lp, cfg, compute_dtype, route,
+                              gate_x), None
     if cfg.moe is not None:
         return moe_ffn(xn, lp, cfg, compute_dtype)
     return dense_ffn(xn, lp, compute_dtype, cfg.ffn_type), None
@@ -448,30 +646,48 @@ def _attn_full_seq(q, k, v, cfg, attn_impl=None):
                            "q_proj")
 
 
-def _layer(x, lp, cfg, positions, compute_dtype, attend):
+def _layer(x, lp, cfg, positions, compute_dtype, attend, route=None):
     """One decoder layer: (x, the MoE aux loss or None, k, v).
 
     ``attend(q, k, v)`` is all an entry point adds: it writes the new K/V
     (B, S, H_kv, D) where its cache keeps them and attends over what that
-    cache holds, returning (B, S, H, D) or (B, S, H * D)."""
-    q, k, v = _qkv(cm.rms_norm(x, lp["ln1"], cfg.norm_eps), lp, cfg,
-                   positions, compute_dtype)
-    out = attend(q, k, v).flatten(2)
+    cache holds, returning (B, S, H, D) or (B, S, H * D).  With latent
+    attention (``cfg.mla``) ``k`` is the layer's latent rows (B, S, 1,
+    latent_dim) and the third argument ``wkv_b`` (``models/mla.py``),
+    which the entry point decompresses with or absorbs into its queries;
+    ``v`` comes back None.  ``route`` records a routed-MoE decode step's
+    routing (``routed_moe_ffn``)."""
+    xn = cm.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    if cfg.mla is None:
+        q, k, v = _qkv(xn, lp, cfg, positions, compute_dtype)
+        out = attend(q, k, v)
+    else:
+        q, k = latent.project(xn, lp, cfg, positions, compute_dtype)
+        v = None
+        out = attend(q, k, cm.maybe_dequant(lp["wkv_b"], compute_dtype))
+    out = out.flatten(2)
     wo = cm.maybe_dequant(lp["wo"], compute_dtype)
     x = x + (out @ wo).to(x.dtype)
-    h, aux = _ffn(cm.rms_norm(x, lp["ln2"], cfg.norm_eps), lp, cfg,
-                  compute_dtype)
+    h, aux = _ffn(x, lp, cfg, compute_dtype, route)
     return x + h, aux, k, v
 
 
-def _layers(x, params, cfg, positions, compute_dtype, attend):
+def _layers(x, params, cfg, positions, compute_dtype, attend, route=None):
     """x through every layer of a cache entry point, layer i attending
     with ``attend(i, q, k, v)``."""
-    layers = params["layers"]
+    tree = params.tree() if isinstance(params, TransformerParams) else params
     for i in range(cfg.n_layers):
-        x = _layer(x, layer_params(layers, i), cfg, positions, compute_dtype,
-                   partial(attend, i))[0]
+        x = _layer(x, layer_weights(tree, cfg, i), cfg, positions,
+                   compute_dtype, partial(attend, i), route)[0]
     return x
+
+
+def _cache_of(cfg: TransformerConfig, ks: list, vs: list) -> dict:
+    """A forward's collected cache: {"k","v"} (L, B, S, H_kv, D), or a
+    latent-attention config's {"kv"} (L, B, S, 1, latent_dim)."""
+    if cfg.mla is not None:
+        return {"kv": torch.stack(ks)}
+    return {"k": torch.stack(ks), "v": torch.stack(vs)}
 
 
 def _embed(params, tokens, compute_dtype):
@@ -515,13 +731,20 @@ def forward(params: TransformerParams, tokens: torch.Tensor,
     ks, vs = [], []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     attend = partial(_attn_full_seq, cfg=cfg, attn_impl=attn_impl)
+    if cfg.mla is not None:
+        if attn_impl is not None:
+            raise NotImplementedError(
+                "no full-sequence attention op computes latent attention "
+                "(query-key heads of qk_head_dim, values of v_head_dim); "
+                "pass attn_impl=None")
+        attend = partial(latent.attend_full_seq, cfg=cfg)
 
     def layer_fn(x, aux, lp):
         x, a, k, v = _layer(hints.constrain_to(x, sp_spec), lp, cfg,
                             positions, compute_dtype, attend)
         return x, (aux if a is None else aux + a), k, v
 
-    for lp in unstack_layers(params["layers"], cfg.n_layers):
+    for lp in _unstacked(params, cfg):
         if remat:
             x, aux, k, v = checkpoint(layer_fn, x, aux, lp,
                                       use_reentrant=False,
@@ -536,7 +759,7 @@ def forward(params: TransformerParams, tokens: torch.Tensor,
     logits = _logits(params, x, cfg, compute_dtype)
     aux = aux / cfg.n_layers
     if collect_cache:
-        return logits, aux, {"k": torch.stack(ks), "v": torch.stack(vs)}
+        return logits, aux, _cache_of(cfg, ks, vs)
     return logits, aux
 
 
@@ -613,6 +836,10 @@ def make_cache(cfg: TransformerConfig, batch: int, s_max: int,
                dtype=torch.bfloat16, device="cuda") -> dict:
     """Zeroed dense cache on ``device`` (the GPU unless ``"cpu"`` is
     asked for; raises without one)."""
+    if cfg.mla is not None:
+        raise NotImplementedError(
+            f"{cfg.name} keeps a latent row a token, which only the paged "
+            f"pool holds (make_paged_cache; the engine's paged=True)")
     device = resolve_device(device)
     shape = (cfg.n_layers, batch, s_max, cfg.n_kv_heads, cfg.d_head)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -759,9 +986,11 @@ def chunk_extend(params: TransformerParams, cache: dict, slot: int,
 # Paged KV cache entry points
 # ---------------------------------------------------------------------------
 #
-# Physical layout: {"k","v"}: (L, n_pages, page, H_kv, D).  Position p of
-# sequence b lives at physical row block_tables[b, p // page] * page +
-# p % page.  JAX drops out-of-bounds scatter rows (mode="drop"); PyTorch has
+# Physical layout: {"k","v"}: (L, n_pages, page, H_kv, D), or with latent
+# attention one latent row a token, {"kv"}: (L, n_pages, page, 1,
+# latent_dim).  Position p of sequence b lives at physical row
+# block_tables[b, p // page] * page + p % page.  JAX drops out-of-bounds
+# scatter rows (mode="drop"); PyTorch has
 # no drop mode and an out-of-bounds index on CUDA is a device-side assert.
 # ``paged_decode_step`` keeps its indices in bounds on the device (no host
 # read); the paged chunk extends take host ints and write only the rows JAX
@@ -770,18 +999,31 @@ def chunk_extend(params: TransformerParams, cache: dict, slot: int,
 def make_paged_cache(cfg: TransformerConfig, n_pages: int, page_size: int,
                      dtype=torch.bfloat16, device="cuda") -> dict:
     """Zeroed page pool on ``device`` (the GPU unless ``"cpu"`` is asked
-    for; raises without one)."""
+    for; raises without one): K and V, or a latent-attention config's
+    latent rows."""
     device = resolve_device(device)
+    if cfg.mla is not None:
+        shape = (cfg.n_layers, n_pages, page_size, 1, cfg.mla.latent_dim)
+        return {"kv": torch.zeros(shape, dtype=dtype, device=device)}
     shape = (cfg.n_layers, n_pages, page_size, cfg.n_kv_heads, cfg.d_head)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _pool_layer(cache: dict, i: int, k, v) -> tuple:
+    """Layer ``i``'s (pool tensor, new rows) pairs: K and V, or the
+    latent rows alone."""
+    if "kv" in cache:
+        return ((cache["kv"][i], k),)
+    return ((cache["k"][i], k), (cache["v"][i], v))
 
 
 def paged_decode_step(params: TransformerParams, cache: dict,
                       token: torch.Tensor, pos: torch.Tensor,
                       block_tables: torch.Tensor, cfg: TransformerConfig,
                       compute_dtype=torch.bfloat16, attn_impl=None,
-                      write_mask: torch.Tensor | None = None):
+                      write_mask: torch.Tensor | None = None,
+                      stats: torch.Tensor | None = None):
     """One autoregressive step against a PAGED KV cache.
 
     cache: {"k","v"}: (L, P, page, H_kv, D).  token/pos: (B,) int32.
@@ -799,9 +1041,18 @@ def paged_decode_step(params: TransformerParams, cache: dict,
     ``attn_impl(q, k_pages, v_pages, block_tables, cache_len)`` is
     block-table-native: it gets the post-scatter pool (P, page, H_kv, D)
     of the layer and the tables.  Returns (logits (B, V), cache).
+
+    With latent attention (``cfg.mla``) the pool holds one latent row a
+    token ({"kv"}), and the step runs the absorbed form: ``W_UK`` folded
+    into the queries, ``attn_impl(q, kv_pages, block_tables, cache_len,
+    scale, d_latent)`` (default ``mla.paged_latent_attention``) over the
+    layer's latent pages (P, page, 1, latent_dim), ``W_UV`` after; the
+    cache is never decompressed.  ``stats`` (2,) float32, for a
+    routed-MoE config, is zeroed and then summed into by every routed
+    layer over the rows kept (``RouteStats``), on the device.
     """
     B = token.shape[0]
-    _, P, page = cache["k"].shape[:3]
+    _, P, page = next(iter(cache.values())).shape[:3]
     M = block_tables.shape[1]
     x = _embed(params, token, compute_dtype)[:, None, :]          # (B, 1, d)
     pos_l = pos.long()
@@ -814,27 +1065,39 @@ def paged_decode_step(params: TransformerParams, cache: dict,
         keep = keep & write_mask.to(keep.device)
     # each row's source row: itself if kept, else the first kept row (row
     # 0 when none is); ``keep`` becomes "some row is kept", for every row
+    route = None
+    if stats is not None:
+        route = RouteStats(keep, stats.zero_())
     src = torch.where(keep, torch.arange(B, device=keep.device),
                       torch.argmax(keep.to(torch.uint8)))
     flat, keep = flat[src], keep[src][:, None, None]
     attn = attn_impl
-    if attn is None:
+    mla = cfg.mla
+    if attn is None and mla is not None:
+        attn = latent.paged_latent_attention
+    elif attn is None:
         def attn(q, kp, vp, tables, cache_len):
             return engine_ref_attn(q, kp, vp, tables, cache_len,
                                    cfg.q_per_kv)
     cache_len = (pos + 1).to(torch.int32)
 
     def attend(i, q, k, v):
-        kc, vc = cache["k"][i], cache["v"][i]          # (P, page, H_kv, D)
-        for c, new in ((kc, k), (vc, v)):
-            f = c.view(P * page, cfg.n_kv_heads, cfg.d_head)
+        pairs = _pool_layer(cache, i, k, v)  # (P, page, H_kv, D) each
+        for c, new in pairs:
+            f = c.view(P * page, *c.shape[2:])
             f.index_copy_(0, flat, torch.where(keep, new[src, 0].to(f.dtype),
                                                f[flat]))
         # JAX attends over the pool cast to the compute dtype
+        if mla is not None:
+            o = attn(latent.absorb(q, v, cfg),
+                     pairs[0][0].to(compute_dtype), block_tables, cache_len,
+                     mla.scale, mla.kv_lora_rank)
+            return latent.unabsorb(o, v, cfg)
+        (kc, _), (vc, _) = pairs
         return attn(q, kc.to(compute_dtype), vc.to(compute_dtype),
                     block_tables, cache_len)
 
-    x = _layers(x, params, cfg, pos[:, None], compute_dtype, attend)
+    x = _layers(x, params, cfg, pos[:, None], compute_dtype, attend, route)
     return _logits(params, x, cfg, compute_dtype)[:, 0], cache   # (B, V)
 
 
@@ -893,12 +1156,17 @@ def paged_chunk_extend_batch(params: TransformerParams, cache: dict,
     them so).
     Returns (cache, logits of each row's last valid token (B, V)); the
     pool is updated in place.
+
+    With latent attention (``cfg.mla``) the rows' latent rows are written
+    and the chunk attends in the absorbed form, as ``paged_decode_step``
+    does: ``attn_impl(q, kv_pages, block_rows, starts, scale, d_latent)``,
+    without it ``mla.chunk_latent_attention`` over the same groups.
     """
-    _, P, page = cache["k"].shape[:3]
+    _, P, page = next(iter(cache.values())).shape[:3]
     B, M = block_rows.shape
     S = M * page
     T = tokens.shape[1]
-    h_kv, d = cfg.n_kv_heads, cfg.d_head
+    mla = cfg.mla
     starts = [int(s) for s in start_pos]
     valid = [int(n) for n in n_valid]
     dev = tokens.device
@@ -918,11 +1186,15 @@ def paged_chunk_extend_batch(params: TransformerParams, cache: dict,
     groups = [(a, min(a + step, B)) for a in range(0, B, step)]
 
     def attend(i, q, k, v):
-        kc, vc = cache["k"][i], cache["v"][i]
-        for c, new in ((kc, k), (vc, v)):
-            f = c.view(P * page, h_kv, d)
-            f.index_copy_(0, flat, new.reshape(B * T, h_kv, d)
+        pairs = _pool_layer(cache, i, k, v)
+        for c, new in pairs:
+            f = c.view(P * page, *c.shape[2:])
+            f.index_copy_(0, flat, new.reshape(B * T, *c.shape[2:])
                           .index_select(0, sel).to(f.dtype))
+        if mla is not None:
+            return latent.unabsorb(
+                latent_chunk(latent.absorb(q, v, cfg), pairs[0][0]), v, cfg)
+        (kc, _), (vc, _) = pairs
         if attn_impl is not None:
             return attn_impl(q, kc.to(compute_dtype), vc.to(compute_dtype),
                              block_rows, first)
@@ -930,6 +1202,17 @@ def paged_chunk_extend_batch(params: TransformerParams, cache: dict,
             q[a:b], kc, vc,
             tables_upto(block_rows[a:b], max(starts[a:b]) + T, page),
             first[a:b]) for a, b in groups]
+        return torch.cat(outs) if len(outs) > 1 else outs[0]
+
+    def latent_chunk(qa, kvp):
+        kvp = kvp.to(compute_dtype)
+        if attn_impl is not None:
+            return attn_impl(qa, kvp, block_rows, first, mla.scale,
+                             mla.kv_lora_rank)
+        outs = [latent.chunk_latent_attention(
+            qa[a:b], kvp,
+            tables_upto(block_rows[a:b], max(starts[a:b]) + T, page),
+            first[a:b], mla.scale, mla.kv_lora_rank) for a, b in groups]
         return torch.cat(outs) if len(outs) > 1 else outs[0]
 
     x = _layers(x, params, cfg, positions, compute_dtype, attend)

@@ -62,6 +62,12 @@ Hot path, as in the JAX engine:
   ``"splitk"`` and the dense pool keep the plain attention that mirrors
   JAX's einsums.
 
+* A latent-attention generator (``tr.LatentMoEConfig``: Moonlight-16B-
+  A3B) keeps one latent row a token in the paged pool and decodes, graph
+  replayed, through the plain latent seam (``mla.paged_latent_attention``)
+  with its prefill and appends on their plain paths; its routed-MoE step
+  also returns its routing, read with the tokens (``_read_routed``).
+
 PyTorch runs eagerly, so where the JAX engine jit-compiles one program
 per prompt bucket, the port just runs the forward; ``prefill_compiles``
 and ``append_compiles`` still count distinct buckets so the metrics read
@@ -219,6 +225,11 @@ class RAGEngine:
                      if cfg.paged else
                      KVCachePool(generative.cfg, cfg.decode_slots, cfg.s_max,
                                  device=self.device))
+        # a routed-MoE generator's decode step records its routing on the
+        # device (``tr.RouteStats``); the tick reads it with its tokens
+        self._route_stats = (torch.zeros(2, device=self.device)
+                             if generative.cfg.routed is not None else None)
+        self._tick_route: dict = {}
         self.queue: list[Request] = []
         self.active: dict[int, Request] = {}     # slot -> request
         self.prefilling: dict[int, int] = {}     # slot -> prompt cursor
@@ -248,6 +259,10 @@ class RAGEngine:
             "cuda" if self.device.type == "cuda" else "ref")
         self.paged_attn, self.dense_attn, self.seq_attn, self.chunk_attn = \
             self._make_attn_impls()
+        # the generator's full-sequence op: none computes latent
+        # attention, whose prefill runs its plain decompressed form
+        self.gen_seq_attn = (None if generative.cfg.mla is not None
+                             else self.seq_attn)
         # the fused step through the decode kernels on a GPU is replayed
         # from a CUDA graph (``decode_logits``), on either pool
         self.graph_decode = (self.device.type == "cuda"
@@ -334,10 +349,19 @@ class RAGEngine:
     def _make_attn_impls(self):
         """The (paged decode, dense decode, full-sequence, paged chunk)
         attention callables for the resolved ``attn_impl``; ``None`` keeps
-        the model functions' built-in references."""
+        the model functions' built-in references.  A latent-attention
+        generator under ``"cuda"`` decodes through the one latent seam,
+        ``mla.paged_latent_attention`` (plain PyTorch: no kernel computes
+        it yet), and appends through the plain chunk path; the encoder
+        keeps the flash kernel."""
+        mla = self.gen.cfg.mla is not None
         if self.attn_impl == "ref":
             return None, None, None, None
         if self.attn_impl == "splitk":
+            if mla:
+                raise ValueError(
+                    f"attn_impl='splitk' shards K/V heads; "
+                    f"{self.gen.cfg.name} keeps latent rows")
             return self._splitk_attn_impls()
         from repro_torch.kernels.decode_attention.ops import decode_attention
         from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -345,6 +369,10 @@ class RAGEngine:
             paged_decode_attention)
         from repro_torch.kernels.paged_chunk_attention.ops import (
             paged_chunk_attention)
+        if mla:
+            from repro_torch.models.mla import paged_latent_attention
+            return (paged_latent_attention, decode_attention,
+                    flash_attention, None)
         return (paged_decode_attention, decode_attention, flash_attention,
                 paged_chunk_attention)
 
@@ -523,7 +551,7 @@ class RAGEngine:
         logits, _aux, cache = tr.forward(self.gen.params,
                                          self._tensor(padded), self.gen.cfg,
                                          collect_cache=True,
-                                         attn_impl=self.seq_attn)
+                                         attn_impl=self.gen_seq_attn)
         if tracer.enabled:
             self._lap("STAGE:prefill.launch")
         # the bucket salts the page keys: pages are shared only between
@@ -787,6 +815,7 @@ class RAGEngine:
             if attrs is not None:
                 attrs["h2d"] = self.h2d.value - h2d
                 attrs["graph"] = self.metrics["decode_graph_replays"] - replays
+                attrs.update(self._tick_route)
 
     def decode_logits(self, token_vec: np.ndarray,
                       step_mask: np.ndarray) -> torch.Tensor:
@@ -828,7 +857,7 @@ class RAGEngine:
             logits, self.pool.cache = tr.paged_decode_step(
                 self.gen.params, self.pool.cache, tokens, positions, tables,
                 self.gen.cfg, attn_impl=self.paged_attn,
-                write_mask=write_mask)
+                write_mask=write_mask, stats=self._route_stats)
         else:
             write_mask, = rest
             logits, self.pool.cache = tr.decode_step(
@@ -840,11 +869,11 @@ class RAGEngine:
     def _replay(self, inputs: list) -> torch.Tensor:
         """The step on the static ``inputs`` from its CUDA graph.  The
         graph is bound to the KV pool's storage (and to the weights):
-        while the pool's ``k`` and ``v`` stay where they were, a tick
-        replays it; else (and on the first tick) the tick runs the step
-        eagerly and captures it (``decode_graph_captures``)."""
-        key = (self.pool.cache["k"].data_ptr(),
-               self.pool.cache["v"].data_ptr())
+        while the pool's ``k`` and ``v`` (a latent pool's ``kv``) stay
+        where they were, a tick replays it; else (and on the first tick)
+        the tick runs the step eagerly and captures it
+        (``decode_graph_captures``)."""
+        key = tuple(v.data_ptr() for v in self.pool.cache.values())
         g = self._graph
         if g is not None and g.key == key:
             g.replay()
@@ -855,6 +884,23 @@ class RAGEngine:
         self.metrics["decode_graph_captures"] += 1
         logits, g.eager = g.eager, None
         return logits
+
+    def _read_routed(self, new_tokens: torch.Tensor) -> np.ndarray:
+        """The tick's one read for a routed-MoE generator: its tokens and
+        the step's routing stats (``tr.RouteStats``) in one host copy.
+        The tick's ``DECODE_TICK`` gets ``experts_hit`` (the distinct
+        routed experts the live rows chose) and ``expert_max`` (the most
+        live rows one expert took), each the mean over the routed
+        layers."""
+        b = new_tokens.shape[0]
+        host = torch.cat([new_tokens.to(torch.float64),
+                          self._route_stats.to(torch.float64)]).cpu().numpy()
+        r = self.gen.cfg.routed
+        n = self.gen.cfg.n_layers - r.first_dense
+        hit, most = host[b:]
+        self._tick_route = {"experts_hit": float(hit) / n,
+                            "expert_max": float(most) / n}
+        return host[:b].astype(np.int64)
 
     def _decode_active(self, token_vec, stepping) -> None:
         """The tick's sub-stages: prepare (write targets, the mask and the
@@ -874,7 +920,10 @@ class RAGEngine:
             if tracer.enabled:
                 self._lap("STAGE:decode.launch")
             # the step's one read: (B,) tokens
-            new_tokens = new_tokens.cpu().numpy()
+            if self._route_stats is None:
+                new_tokens = new_tokens.cpu().numpy()
+            else:
+                new_tokens = self._read_routed(new_tokens)
         else:
             if tracer.enabled:
                 self._lap("STAGE:decode.launch")

@@ -4,7 +4,9 @@
 * :class:`KVCachePool` -- the dense layout, one ``s_max``-wide cache row
   per slot: (L, n_slots, S_max, H_kv, D).
 * :class:`PagedKVCachePool` -- fixed-size pages (L, n_pages, page, H_kv,
-  D) with a per-slot page table and a content-addressed prefix cache.  The
+  D) with a per-slot page table and a content-addressed prefix cache; for
+  a latent-attention config one latent row a token, {"kv"}: (L, n_pages,
+  page, 1, latent_dim), which every method below moves as it moves K/V.  The
   host policy -- page tables, refcounts, chain keys, copy-on-extend, LRU
   eviction -- is numpy and the same line for line as the JAX pool, so both
   pools make the same decisions from the same calls.
@@ -384,12 +386,12 @@ class PagedKVCachePool:
                                        device=self.device)
             if self.h2d is not None:
                 self.h2d.value += 2
-            L = self.cfg.n_layers
-            h, d = self.cfg.n_kv_heads, self.cfg.d_head
             for k, v in layer_cache.items():
                 rows = F.pad(v[:, 0, :p], (0, 0, 0, 0, 0, pad))
-                self.cache[k][:, phys_idx] = rows.reshape(
-                    L, n_pages, ps, h, d)[:, log_idx].to(self.cache[k].dtype)
+                pool = self.cache[k]
+                pool[:, phys_idx] = rows.reshape(
+                    pool.shape[0], n_pages, ps, *pool.shape[3:])[
+                        :, log_idx].to(pool.dtype)
         self.lengths[slot] = p
 
     def export_slot(self, slot: int) -> tuple[PagedPrefix, int]:
@@ -409,11 +411,11 @@ class PagedKVCachePool:
         if not table:
             return PagedPrefix(ps, length, keys, {}), length
         names = sorted(self.cache)
-        L, h, d = self.cfg.n_layers, self.cfg.n_kv_heads, self.cfg.d_head
+        pool = self.cache[names[0]]
         idx = torch.as_tensor(table, device=self.device)
-        buf = torch.empty((len(names), len(table), L, ps, h, d),
-                          dtype=self.cache[names[0]].dtype,
-                          device=self.device)
+        buf = torch.empty((len(names), len(table), pool.shape[0], ps,
+                           *pool.shape[3:]),
+                          dtype=pool.dtype, device=self.device)
         for i, k in enumerate(names):
             # (L, P, page, H, D) viewed page-major, pages picked in order
             torch.index_select(self.cache[k].transpose(0, 1), 0, idx,
@@ -462,7 +464,7 @@ class PagedKVCachePool:
                 continue
             payload = prefix.pages[j]
             phys = self._take_page()
-            n = payload["k"].shape[1]
+            n = payload[names[0]].shape[1]
             rows.extend(range(phys * ps, phys * ps + n))
             pages.append(payload)
             if key is not None:
